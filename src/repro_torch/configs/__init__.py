@@ -1,0 +1,6 @@
+"""Architecture configs the port runs.  Importing this package registers
+each of them with repro_torch.core.config's registry (``--arch <id>``)."""
+from repro_torch.configs import (  # noqa: F401
+    minitron_8b,
+    qwen1_5_0_5b,
+)

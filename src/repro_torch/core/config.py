@@ -1,0 +1,130 @@
+"""Model configuration for the PyTorch port.
+
+The port's own copy of the dataclasses and the architecture registry of
+``repro.core.config``: the port imports nothing of the JAX package, so the
+fields it reads are kept here with the same names and defaults.  Sub-configs
+of families the port does not run yet (MoE, SSM, RWKV, frontends, convnets)
+stay as ``Optional`` fields that hold ``None`` in every registered config.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class AttentionConfig:
+    """Multi-head attention description (GQA or MLA)."""
+
+    kind: str = "gqa"  # "gqa" | "mla"
+    num_heads: int = 16
+    num_kv_heads: int = 16
+    head_dim: int = 64
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    # MLA (DeepSeek-V2) parameters; only read when kind == "mla".
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    family: str = "dense"
+    num_layers: int = 2
+    d_model: int = 128
+    d_ff: int = 512
+    vocab_size: int = 512
+    attention: Optional[AttentionConfig] = None
+    # families the port does not run yet; None in every registered config
+    moe: Optional[Any] = None
+    ssm: Optional[Any] = None
+    rwkv: Optional[Any] = None
+    frontend: Optional[Any] = None
+    convnet: Optional[Any] = None
+    attn_every: int = 0
+    encoder_layers: int = 0
+    act: str = "swiglu"             # "swiglu" | "gelu" | "relu2"
+    norm: str = "rmsnorm"
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    max_seq_len: int = 4096
+
+    def layer_kinds(self) -> List[str]:
+        """Per-layer mixer kind for hybrid models: 'attn' or 'ssm'."""
+        if self.family != "hybrid" or not self.attn_every:
+            if self.family == "ssm" and self.rwkv is not None:
+                return ["rwkv"] * self.num_layers
+            if self.family == "ssm":
+                return ["ssm"] * self.num_layers
+            return ["attn"] * self.num_layers
+        return ["attn" if i % self.attn_every == self.attn_every // 2 else "ssm"
+                for i in range(self.num_layers)]
+
+    def ffn_kinds(self) -> List[str]:
+        """Per-layer FFN kind: 'dense' or 'moe'."""
+        if self.moe is None:
+            return ["dense"] * self.num_layers
+        kinds = []
+        for i in range(self.num_layers):
+            if i < self.moe.first_k_dense:
+                kinds.append("dense")
+            elif (i - self.moe.first_k_dense) % self.moe.moe_every \
+                    == self.moe.moe_offset:
+                kinds.append("moe")
+            else:
+                kinds.append("dense")
+        return kinds
+
+
+# ---------------------------------------------------------------------------
+# Architecture registry
+# ---------------------------------------------------------------------------
+
+_ARCH_REGISTRY: Dict[str, Callable[[], "ArchSpec"]] = {}
+
+
+@dataclass(frozen=True)
+class ArchSpec:
+    """One architecture: full config + reduced smoke config + shapes."""
+
+    arch_id: str
+    model: ModelConfig
+    smoke: ModelConfig
+    shapes: Tuple[str, ...] = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+    skip_shapes: Tuple[str, ...] = ()
+    skip_reason: str = ""
+    source: str = ""
+
+
+def register_arch(arch_id: str):
+    def deco(fn: Callable[[], ArchSpec]):
+        _ARCH_REGISTRY[arch_id] = fn
+        return fn
+
+    return deco
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    _ensure_configs_imported()
+    if arch_id not in _ARCH_REGISTRY:
+        raise KeyError(
+            f"unknown arch {arch_id!r}; available: {sorted(_ARCH_REGISTRY)}"
+        )
+    return _ARCH_REGISTRY[arch_id]()
+
+
+def list_archs() -> List[str]:
+    _ensure_configs_imported()
+    return sorted(_ARCH_REGISTRY)
+
+
+def _ensure_configs_imported() -> None:
+    # Importing repro_torch.configs registers every architecture module.
+    import repro_torch.configs  # noqa: F401

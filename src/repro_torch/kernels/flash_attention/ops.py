@@ -1,0 +1,74 @@
+"""Flash-attention forward op: the Hopper kernel for CUDA tensors, the plain
+version for CPU tensors.
+
+A CUDA tensor launches ``csrc/flash_attention.cu`` or raises; nothing routes
+it to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ref
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+# kernel launches, counted where the kernel is launched and nowhere else
+launches = 0
+
+MAX_HEAD_DIM = 128
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention: want q (B, Hq, Sq, hd) and k, v "
+                         f"(B, Hkv, Sk, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Hq, _, hd = q.shape
+    _, Hkv, _, hd_k = k.shape
+    if k.shape[0] != B or hd_k != hd or Hq % Hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
+                         f"match k {tuple(k.shape)}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head_dim {hd} > {MAX_HEAD_DIM}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k, v must share one dtype of "
+                        f"{list(_DTYPES)}; got {q.dtype}, {k.dtype}, {v.dtype}")
+    devices = {t.device for t in (q, k, v)}
+    if len(devices) != 1:
+        raise ValueError(f"flash_attention: tensors on {devices}")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention: tensors must be contiguous")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Softmax attention forward; query i sits at position q_offset + i.
+
+    q: (B, Hq, Sq, hd); k, v: (B, Hkv, Sk, hd), Hq % Hkv == 0 (query head h
+    reads KV head h // group).  Returns (B, Hq, Sq, hd) in q.dtype.
+    """
+    global launches
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for {q.device}")
+    B, Hq, Sq, hd = q.shape
+    _, Hkv, Sk, _ = k.shape
+    fn = _build.function("flash_attention", _ARGTYPES)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
+             Hkv, Sq, Sk, hd, int(causal), int(q_offset), _DTYPES[q.dtype],
+             stream)
+    _build.check("flash_attention", err)
+    launches += 1
+    return out
+
+
+__all__ = ["flash_attention", "attention_ref", "ref"]

@@ -1,0 +1,144 @@
+"""Residual blocks and the stacked-period layer stack (PyTorch twin of
+``repro.models.blocks``).
+
+A model is ``N repetitions of a period``, a period being the minimal
+repeating list of (mixer_kind, ffn_kind) layer descriptors.  Period
+parameters are stacked on a leading axis, as in the JAX package, so its
+param tree converts key for key; the reference's ``lax.scan`` over that axis
+is a Python loop here.  The port runs ("attn", "dense") blocks: the other
+mixers and FFNs, and the dense prefix blocks in front of an MoE stack, wait
+for their slices (ROADMAP.md, Queue 1 items 8-11).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.models import attention as ATT
+from repro_torch.models import layers as L
+from repro_torch.models.layers import Params
+
+
+# ---------------------------------------------------------------------------
+# Pattern
+# ---------------------------------------------------------------------------
+
+
+def layer_descriptors(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    mixers = cfg.layer_kinds()
+    ffns = cfg.ffn_kinds()
+    return [(m, "rwkv_cm" if m == "rwkv" else f) for m, f in zip(mixers, ffns)]
+
+
+def block_pattern(cfg: ModelConfig) -> Tuple[List, List, int]:
+    """Returns (prefix_descriptors, period_descriptors, n_periods)."""
+    desc = layer_descriptors(cfg)
+    n_prefix = cfg.moe.first_k_dense if cfg.moe else 0
+    prefix, rest = desc[:n_prefix], desc[n_prefix:]
+    n = len(rest)
+    for p in range(1, n + 1):
+        if n % p == 0 and rest == rest[:p] * (n // p):
+            return prefix, rest[:p], n // p
+    return prefix, rest, 1
+
+
+def _ported_pattern(cfg: ModelConfig) -> Tuple[List, int]:
+    prefix, period, n_periods = block_pattern(cfg)
+    if prefix or any(d != ("attn", "dense") for d in period):
+        raise NotImplementedError(
+            f"{cfg.name}: blocks {prefix + period} are not ported yet; the "
+            "port runs ('attn', 'dense') stacks (ROADMAP.md, Queue 1)")
+    return period, n_periods
+
+
+# ---------------------------------------------------------------------------
+# One block
+# ---------------------------------------------------------------------------
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str
+               ) -> Params:
+    """An ("attn", "dense") block; the stack admits no other kind."""
+    dt = L.dtype_of(cfg.param_dtype)
+    return {
+        "norm1": L.init_norm(cfg.d_model, cfg.norm, dt, gen.device),
+        "attn": ATT.init_attention(gen, cfg),
+        "norm2": L.init_norm(cfg.d_model, cfg.norm, dt, gen.device),
+        "ffn": L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.act, dt),
+    }
+
+
+def block_cache_spec(cfg: ModelConfig, mixer: str, ffn: str,
+                     batch: int, max_len: int) -> Params:
+    return {"attn": ATT.attention_cache_spec(cfg, batch, max_len)}
+
+
+def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                mixer: str, ffn: str, *, mode: str,
+                cache: Optional[Params] = None, pos=None,
+                causal: bool = True,
+                ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Returns (x, new_cache)."""
+    cd = L.dtype_of(cfg.compute_dtype)
+    h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
+    y, c = ATT.apply_attention(p["attn"], h, cfg, mode=mode,
+                               cache=None if cache is None else cache["attn"],
+                               pos=pos, causal=causal)
+    x = x + y.to(x.dtype)
+    h = L.apply_norm(p["norm2"], x, cfg.norm_eps)
+    x = x + L.apply_ffn(p["ffn"], h, cfg.act, cd).to(x.dtype)
+    return x, (None if c is None else {"attn": c})
+
+
+# ---------------------------------------------------------------------------
+# Stack (stacked periods)
+# ---------------------------------------------------------------------------
+
+
+def init_stack(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    period, n_periods = _ported_pattern(cfg)
+
+    def init_period():
+        return {f"sub{j}": init_block(gen, cfg, m, f)
+                for j, (m, f) in enumerate(period)}
+
+    periods = [init_period() for _ in range(n_periods)]
+    return {"periods": L.tree_map(lambda *xs: torch.stack(xs), *periods)}
+
+
+def stack_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> Params:
+    period, n_periods = _ported_pattern(cfg)
+    per = {f"sub{j}": block_cache_spec(cfg, m, f, batch, max_len)
+           for j, (m, f) in enumerate(period)}
+    return {"periods": L.tree_map(
+        lambda s: ATT.TensorSpec((n_periods,) + s.shape, s.dtype), per)}
+
+
+def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                mode: str, cache: Optional[Params] = None, pos=None,
+                causal: bool = True,
+                ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Run the periods in order.  Returns (x, new_cache): in decode the
+    cache tensors themselves, updated in place; in prefill a new cache
+    stacked on the period axis; in train None."""
+    period, n_periods = _ported_pattern(cfg)
+    per_period = []
+    for i in range(n_periods):
+        p_params = L.tree_map(lambda t: t[i], params["periods"])
+        p_cache = None if cache is None else \
+            L.tree_map(lambda t: t[i], cache["periods"])
+        caches_out = {}
+        for j, (m, f) in enumerate(period):
+            x, c = apply_block(p_params[f"sub{j}"], x, cfg, m, f, mode=mode,
+                               cache=None if p_cache is None else p_cache[f"sub{j}"],
+                               pos=pos, causal=causal)
+            if c is not None:
+                caches_out[f"sub{j}"] = c
+        per_period.append(caches_out)
+    if mode == "decode":
+        return x, cache
+    if mode == "prefill":
+        return x, {"periods": L.tree_map(lambda *xs: torch.stack(xs), *per_period)}
+    return x, None

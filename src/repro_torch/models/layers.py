@@ -1,0 +1,278 @@
+"""Common model building blocks (PyTorch twin of ``repro.models.layers``).
+
+Parameters are plain nested dicts of tensors, in the JAX package's layout:
+projections are 2-D ``(d_in, d_out)`` matrices (stacked to ``(L, d_in,
+d_out)`` by the stack), so a JAX param tree maps onto this one key for key.
+Initialisers draw from an explicit ``torch.Generator`` and allocate on its
+device; they use the reference's distributions and scales, not its bits.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+def tree_map(fn, *trees):
+    """Apply ``fn`` leaf by leaf over nested dicts of the same keys."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[name]
+
+
+# ---------------------------------------------------------------------------
+# Initialisers
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype,
+                bias: bool = False, scale: Optional[float] = None) -> Params:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    p = {"w": _normal(gen, (d_in, d_out), scale, dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def linear(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16
+           ) -> torch.Tensor:
+    """``x @ w (+ b)``.  The product comes out in the compute dtype (the
+    reference's default cast-before-reduce: f32 accumulation inside the
+    product, one rounding at its output); the bias is added in f32."""
+    y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    if "b" in p:
+        y = y.float() + p["b"].float()
+    return y.to(compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Normalisation
+# ---------------------------------------------------------------------------
+
+
+def init_norm(d: int, kind: str, dtype, device=None) -> Params:
+    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
+
+
+def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    if "bias" in p:  # layernorm
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (exps / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  Split-half
+    rotation."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    angles = positions[..., None].float() * freqs            # (..., S, hd/2)
+    angles = angles[..., None, :]                            # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention, plain PyTorch.  The model's attention runs through the kernels
+# in repro_torch.kernels; these are the twins of the reference's XLA paths.
+# ---------------------------------------------------------------------------
+
+
+def _kv_len_mask(kv_len, k_pos: torch.Tensor, B: int) -> torch.Tensor:
+    vl = torch.as_tensor(kv_len, device=k_pos.device).reshape(-1, 1, 1, 1, 1)
+    return k_pos[None, None, None, None, :] < vl.expand(B, 1, 1, 1, 1)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool, q_offset: int = 0,
+                      chunk_q: int = 512, chunk_k: int = 1024,
+                      kv_len=None) -> torch.Tensor:
+    """Online-softmax attention over key chunks.
+
+    q: (B, Hq, Sq, hd);  k, v: (B, Hkv, Sk, hd) with Hq % Hkv == 0 (GQA).
+    ``q_offset``: absolute position of q[0].  ``kv_len``: optional scalar or
+    (B,) valid kv lengths.  Returns (B, Hq, Sq, hd) in q.dtype.
+    """
+    B, Hq, Sq, hd = q.shape
+    _, Hkv, Sk, _ = k.shape
+    vd = v.shape[-1]
+    group = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Hkv, group, Sq, hd).float()
+
+    chunk_q = min(chunk_q, Sq)
+    chunk_k = min(chunk_k, Sk)
+    nq, nk = -(-Sq // chunk_q), -(-Sk // chunk_k)
+    q_pad, k_pad = nq * chunk_q - Sq, nk * chunk_k - Sk
+    if q_pad:
+        qg = F.pad(qg, (0, 0, 0, q_pad))
+    if k_pad:
+        k = F.pad(k, (0, 0, 0, k_pad))
+        v = F.pad(v, (0, 0, 0, k_pad))
+
+    dev = q.device
+    q_pos = q_offset + torch.arange(nq * chunk_q, device=dev)
+    k_pos = torch.arange(nk * chunk_k, device=dev)
+    shape = (B, Hkv, group, nq * chunk_q)
+    acc = torch.zeros(shape + (vd,), dtype=torch.float32, device=dev)
+    m = torch.full(shape + (1,), -math.inf, dtype=torch.float32, device=dev)
+    denom = torch.zeros(shape + (1,), dtype=torch.float32, device=dev)
+    for kc in range(nk):
+        sl = slice(kc * chunk_k, (kc + 1) * chunk_k)
+        ks, vs, kp = k[:, :, sl].float(), v[:, :, sl], k_pos[sl]
+        s = torch.einsum("bngqd,bnkd->bngqk", qg, ks) * scale
+        mask = torch.ones(s.shape, dtype=torch.bool, device=dev)
+        if causal:
+            mask = (q_pos[:, None] >= kp[None, :])[None, None, None]
+        if kv_len is not None:
+            mask = mask & _kv_len_mask(kv_len, kp, B)
+        elif k_pad:
+            mask = mask & (kp < Sk)[None, None, None, None, :]
+        s = s.masked_fill(~mask, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        # guard rows where everything is masked (m_new == -inf)
+        m_safe = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        p = torch.exp(s - m_safe).masked_fill(~mask, 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                           torch.zeros_like(m))
+        denom = denom * corr + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bngqk,bnkd->bngqd", p.to(vs.dtype).float(),
+                          vs.float())
+        acc = acc * corr + pv
+        m = m_new
+    out = acc / torch.clamp(denom, min=1e-30)
+    out = out.reshape(B, Hq, nq * chunk_q, vd)[:, :, :Sq]
+    return out.to(q.dtype)
+
+
+def full_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                   kv_len=None) -> torch.Tensor:
+    """Full-materialisation softmax attention (small shapes only)."""
+    B, Hq, Sq, hd = q.shape
+    _, Hkv, Sk, _ = k.shape
+    vd = v.shape[-1]
+    group = Hq // Hkv
+    dev = q.device
+    qg = q.reshape(B, Hkv, group, Sq, hd).float()
+    s = torch.einsum("bngqd,bnkd->bngqk", qg, k.float()) / math.sqrt(hd)
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask = q_pos[:, None] >= k_pos[None, :]
+    mask = mask[None, None, None]
+    if kv_len is not None:
+        mask = mask & _kv_len_mask(kv_len, k_pos, B)
+    s = s.masked_fill(~mask, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)
+    out = torch.einsum("bngqk,bnkd->bngqd", p.to(v.dtype).float(), v.float())
+    return out.reshape(B, Hq, Sq, vd).to(q.dtype)
+
+
+def attention(q, k, v, *, causal: bool, q_offset: int = 0, kv_len=None,
+              chunked_threshold: int = 1024) -> torch.Tensor:
+    """Dispatch: full softmax for short sequences, online-softmax otherwise."""
+    if q.shape[2] * k.shape[2] <= chunked_threshold ** 2:
+        return full_attention(q, k, v, causal=causal, q_offset=q_offset,
+                              kv_len=kv_len)
+    return chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
+                             kv_len=kv_len)
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward
+# ---------------------------------------------------------------------------
+
+
+def init_ffn(gen: torch.Generator, d_model: int, d_ff: int, act: str,
+             dtype) -> Params:
+    p = {"w_up": init_linear(gen, d_model, d_ff, dtype),
+         "w_down": init_linear(gen, d_ff, d_model, dtype)}
+    if act == "swiglu":
+        p["w_gate"] = init_linear(gen, d_model, d_ff, dtype)
+    return p
+
+
+def apply_ffn(p: Params, x: torch.Tensor, act: str,
+              compute_dtype=torch.bfloat16) -> torch.Tensor:
+    h = linear(p["w_up"], x, compute_dtype)
+    if act == "swiglu":
+        g = linear(p["w_gate"], x, compute_dtype)
+        h = F.silu(g.float()).to(compute_dtype) * h
+    elif act == "gelu":
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(h.float(), approximate="tanh").to(compute_dtype)
+    elif act == "relu2":
+        h = F.relu(h.float()).square().to(compute_dtype)
+    else:
+        raise ValueError(act)
+    return linear(p["w_down"], h, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
+                   dtype) -> Params:
+    return {"table": _normal(gen, (vocab, d_model), 0.02, dtype)}
+
+
+def embed(p: Params, tokens: torch.Tensor, compute_dtype=torch.bfloat16
+          ) -> torch.Tensor:
+    return p["table"][tokens].to(compute_dtype)
+
+
+def dot_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """``x @ w`` of compute-dtype operands, summed and returned in f32."""
+    x, w = x.to(compute_dtype), w.to(compute_dtype)
+    if compute_dtype != torch.float32:
+        x, w = x.float(), w.float()
+    return torch.matmul(x, w)
+
+
+def logits_from_embedding(p: Params, x: torch.Tensor, softcap: float = 0.0,
+                          compute_dtype=torch.bfloat16) -> torch.Tensor:
+    y = dot_f32(x, p["table"].t(), compute_dtype)
+    if softcap:
+        y = torch.tanh(y / softcap) * softcap
+    return y

@@ -1,0 +1,101 @@
+"""Decoder-only language model (PyTorch twin of ``repro.models.lm``).
+
+Public surface (used by repro_torch.models.api):
+  init_params, forward, init_decode_state, allocate_decode_state, prefill,
+  decode_step
+The training losses (``chunked_xent``, ``loss_fn``) come with the training
+slice (ROADMAP.md, Queue 1 item 6).
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core.config import ModelConfig
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+from repro_torch.models.layers import Params
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Random params on ``gen.device``, drawn from ``gen``."""
+    dt = L.dtype_of(cfg.param_dtype)
+    p: Params = {
+        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dt),
+        "stack": B.init_stack(gen, cfg),
+        "final_norm": L.init_norm(cfg.d_model, cfg.norm, dt, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = L.init_linear(gen, cfg.d_model, cfg.vocab_size, dt)
+    return p
+
+
+def _head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    cd = L.dtype_of(cfg.compute_dtype)
+    if cfg.tie_embeddings:
+        return L.logits_from_embedding(p["embed"], x, cfg.logit_softcap, cd)
+    logits = L.dot_f32(x, p["lm_head"]["w"], cd)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+def _embed_inputs(p: Params, cfg: ModelConfig,
+                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Text tokens only; the VLM prefix comes with its slice (ROADMAP.md,
+    Queue 1 item 12)."""
+    if cfg.frontend is not None and cfg.frontend.kind != "none":
+        raise NotImplementedError("modality prefixes are not ported yet")
+    return L.embed(p["embed"], batch["tokens"], L.dtype_of(cfg.compute_dtype))
+
+
+def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            mode: str = "train") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal forward. Returns (logits (B, S, V) f32, aux)."""
+    x = _embed_inputs(p, cfg, batch)
+    x, _ = B.apply_stack(p["stack"], x, cfg, mode="train")
+    x = L.apply_norm(p["final_norm"], x, cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(p, x, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int) -> Params:
+    """TensorSpec tree for the decode cache (allocate with zeros)."""
+    return B.stack_cache_spec(cfg, batch, max_len)
+
+
+def allocate_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                          device) -> Params:
+    spec = init_decode_state(cfg, batch, max_len)
+    return L.tree_map(
+        lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device), spec)
+
+
+def prefill(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            ) -> Tuple[torch.Tensor, Params]:
+    """Process the full prompt; returns (last-position logits (B, 1, V),
+    cache holding exactly the prompt's S positions)."""
+    x = _embed_inputs(p, cfg, batch)
+    x, cache = B.apply_stack(p["stack"], x, cfg, mode="prefill")
+    x = L.apply_norm(p["final_norm"], x, cfg.norm_eps)
+    return _head(p, x[:, -1:], cfg), cache
+
+
+def decode_step(p: Params, cfg: ModelConfig, state: Params,
+                tokens: torch.Tensor, pos: torch.Tensor,
+                ) -> Tuple[torch.Tensor, Params]:
+    """One decode step.  tokens: (B,) int; pos: scalar or per-slot (B,) int
+    (cache write index; row b attends to [0, pos[b]]).  Writes the cache in
+    place and returns (logits (B, V) f32, the same state)."""
+    cd = L.dtype_of(cfg.compute_dtype)
+    x = L.embed(p["embed"], tokens[:, None], cd)
+    x, state = B.apply_stack(p["stack"], x, cfg, mode="decode",
+                             cache=state, pos=pos)
+    x = L.apply_norm(p["final_norm"], x, cfg.norm_eps)
+    return _head(p, x, cfg)[:, 0], state
