@@ -8,15 +8,23 @@ Phases, in order; any failed check ends the run with a non-zero exit:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` with nvcc (sm_90a);
 2. hold each kernel against its plain PyTorch version on the card, in f32
-   and bf16, at the main path's shapes, and time the kernel, the plain
-   version and one PyTorch library call that computes the same function;
+   and bf16, at the main paths' shapes, and time the kernel, the plain
+   version and, where there is one, a PyTorch library call that computes
+   the same function;
 3. serve 8 requests with the port's ``BatchedServer`` on qwen1.5-0.5b at
    full width (24 layers, d_model 1024, vocab 151,936, f32, random weights
    from a seed): every decode step must go through the decode kernel;
 4. check that two requests decoded in one batch at different depths give
    the logits each gives alone;
 5. prefill 4 prompts of 256 tokens through the flash-attention kernel and
-   check the last logits against the decode path fed the same prompts.
+   check the last logits and the cache against the decode path fed the
+   same prompts;
+6. serve the same traffic on rwkv6-1.6b at full width (24 layers, d_model
+   2048, vocab 65,536, f32, random weights from a seed): every admission
+   prefills its prompt through the WKV scan kernel, once per layer;
+7. on rwkv6-1.6b, check (a) prefill against token-by-token decode (last
+   logits and the whole recurrent state) and (b) that each request served
+   in a 2-slot batch gets, at every step, the logits it gets alone.
 
 The last line is ``{"ok": true, "device": {...}}``; ``--out`` also writes
 every number of the run to a JSON file.  The script needs a CUDA
@@ -41,6 +49,9 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # tests/test_kernels.py's tolerances
 TOL = {"float32": dict(atol=3e-5, rtol=0.0),
        "bfloat16": dict(atol=3e-2, rtol=1e-2)}
+# tests/test_kernels.py's tolerance for the WKV scan (out and state): all of
+# its arithmetic is f32 whatever the dtype of r, k, v
+K4_TOL = dict(atol=1e-3, rtol=0.0)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -80,11 +91,10 @@ def gpu_name_and_power_limit() -> str:
 # ---------------------------------------------------------------------------
 
 
-def _within(torch, got, want, dtype) -> float:
-    """Max abs error; fails beyond the dtype's tolerance."""
+def _within(torch, got, want, tol) -> float:
+    """Max abs error; fails beyond the tolerance ``tol`` (atol, rtol)."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    tol = TOL[dtype]
     bad = err > tol["atol"] + tol["rtol"] * want.abs()
     check(bool(torch.isfinite(got).all()), "non-finite kernel output")
     check(not bool(bad.any()),
@@ -101,7 +111,8 @@ def decode_case(torch, F, dops, B, Hq, Hkv, S, hd, kv_len, dtype, gen):
     lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
     got = dops.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
-    err = _within(torch, got, dops.decode_attention_ref(q, k, v, lens), dtype)
+    err = _within(torch, got, dops.decode_attention_ref(q, k, v, lens),
+                  TOL[dtype])
 
     mask = (torch.arange(S, device="cuda")[None, :] < lens[:, None])
     mask = mask[:, None, None, :]
@@ -133,7 +144,7 @@ def flash_case(torch, F, fops, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
     kw = dict(causal=causal, q_offset=q_offset)
     got = fops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    err = _within(torch, got, fops.attention_ref(q, k, v, **kw), dtype)
+    err = _within(torch, got, fops.attention_ref(q, k, v, **kw), TOL[dtype])
 
     q_pos = q_offset + torch.arange(Sq, device="cuda")
     k_pos = torch.arange(Sk, device="cuda")
@@ -160,6 +171,35 @@ def flash_case(torch, F, fops, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
         **_bound(nbytes, flops, dtype))
 
 
+def rwkv_case(torch, kops, N, S, hd, dtype, gen):
+    """One WKV-scan check + timings, inputs drawn as in
+    tests/test_kernels.py.  No single PyTorch call computes WKV6."""
+    dt = getattr(torch, dtype)
+    r, k, v = (torch.randn(N, S, hd, device="cuda", generator=gen).to(dt)
+               for _ in range(3))
+    z = torch.randn(N, S, hd, device="cuda", generator=gen)
+    logw = torch.clamp(-torch.exp(0.5 * z - 1), -8.0, -1e-6)
+    u = 0.1 * torch.randn(N, hd, device="cuda", generator=gen)
+    s0 = 0.1 * torch.randn(N, hd, hd, device="cuda", generator=gen)
+    args = (r, k, v, logw, u, s0)
+    out, state = kops.rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    want_out, want_state = kops.rwkv6_scan_ref(*args)
+    err = max(_within(torch, out, want_out, K4_TOL),
+              _within(torch, state, want_state, K4_TOL))
+    # r, k, v read once in their dtype, logw once in f32, y written once in
+    # f32, the state read and written once, u read once
+    nbytes = ((3 * r.element_size() + 4) * N * S * hd + 4 * N * S * hd
+              + 8 * N * hd * hd + 4 * N * hd)
+    flops = 4.0 * N * S * hd * hd      # read-out + update, one FMA each
+    return dict(
+        shape=f"N={N} S={S} hd={hd}", dtype=dtype, max_abs_err=err,
+        ms=time_ms(torch, lambda: kops.rwkv6_scan(*args)),
+        plain_ms=time_ms(torch, lambda: kops.rwkv6_scan_ref(*args), reps=5,
+                         inner=2),
+        library_ms=None, **_bound(nbytes, flops, "float32"))
+
+
 def _bound(nbytes: float, flops: float, dtype: str) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -168,26 +208,35 @@ def _bound(nbytes: float, flops: float, dtype: str) -> dict:
 
 
 def _print_row(name, row):
+    lib = row["library_ms"]
+    lib = "none" if lib is None else f"{lib:.4f}"
     print(f"  {name:17s} {row['dtype']:8s} {row['shape']:60s} "
           f"err={row['max_abs_err']:.2e} ms={row['ms']:.4f} "
-          f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
-          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+          f"plain_ms={row['plain_ms']:.4f} library_ms={lib} "
+          f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})", flush=True)
 
 
 # ---------------------------------------------------------------------------
-# Phases 3-5: the port's main path at full width
+# Phases 3-7: the port's main paths at full width
 # ---------------------------------------------------------------------------
 
 
-def reset_counts(dops, fops):
-    dops.launches = fops.launches = 0
-    dops.ref.calls = fops.ref.calls = 0
+def reset_counts(kernels):
+    """Zero every kernel's launch count and every plain version's calls."""
+    for ops in kernels.values():
+        ops.launches = 0
+        ops.ref.calls = 0
 
 
-def phase_serve(torch, np, cfg, params, device, dops, fops, serve, slots=4,
+def launches_of(kernels) -> dict:
+    return {name: ops.launches for name, ops in kernels.items()}
+
+
+def phase_serve(torch, np, cfg, params, device, kernels, serve, slots=4,
                 max_len=512, n_requests=8, max_new=32, prompt_range=(16, 257)):
-    """Serve requests of seeded prompt lengths through BatchedServer; every
-    decode call must launch the decode kernel once per layer."""
+    """Serve requests of seeded prompt lengths through BatchedServer.
+    Returns each kernel's launches in the run and the decode calls; the
+    caller checks them against the model's path."""
     server = serve.BatchedServer(cfg, batch_slots=slots, max_len=max_len,
                                  device=device)
     server.load(params)
@@ -206,28 +255,25 @@ def phase_serve(torch, np, cfg, params, device, dops, fops, serve, slots=4,
     queue = [serve.Request(i, rng.integers(0, cfg.vocab_size, size=int(n)),
                            max_new=max_new, t_arrive=t0)
              for i, n in enumerate(prompt_lens)]
-    reset_counts(dops, fops)
+    reset_counts(kernels)
     steps_run = serve.run(server, queue)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dops.launches
+    launches = launches_of(kernels)
     check(all(r.done for r in queue), "not every request finished")
     check(all(len(r.out) == max_new for r in queue), "a request stopped early")
     check(all(0 <= t < cfg.vocab_size for r in queue for t in r.out),
           "token outside the vocabulary")
-    check(launches == cfg.num_layers * decode_calls,
-          f"decode kernel launched {launches} times for {decode_calls} "
-          f"decode calls of {cfg.num_layers} layers")
-    check(launches > 0, "decode kernel never launched")
-    check(fops.launches == 0, "serving launched the prefill kernel")
-    check(dops.ref.calls == 0 and fops.ref.calls == 0,
+    check(all(ops.ref.calls == 0 for ops in kernels.values()),
           "the plain versions ran on the card")
     toks = sum(len(r.out) for r in queue)
+    admission = ("prefill per request" if server.prefill is not None
+                 else "token-by-token prefill")
     print(f"prompt lengths {prompt_lens.tolist()}; served {len(queue)} "
           f"requests, {toks} tokens in {wall:.2f} s ({toks / wall:.1f} tok/s, "
-          f"{steps_run} decode steps, {decode_calls} decode calls incl. "
-          f"token-by-token prefill)")
+          f"{steps_run} decode steps, {decode_calls} decode calls, "
+          f"admission by {admission}); launches {launches}")
     print(serve.serve_summary(queue), flush=True)
     return dict(launches=launches, tok_s=toks / wall, wall_s=wall,
                 steps=steps_run, decode_calls=decode_calls,
@@ -322,25 +368,27 @@ def phase_ragged(torch, cfg, params, device, steps, api):
     return err
 
 
-def phase_prefill(torch, np, cfg, params, device, dops, fops, steps, api,
-                  batch=4, length=256):
-    """Prefill through the flash kernel (one launch per layer); the last
-    logits match the decode path fed the same prompts token by token."""
+def phase_prefill(torch, np, cfg, params, device, kernels, kernel, steps,
+                  api, batch=4, length=256):
+    """Prefill through ``kernel`` (one launch per layer); the last logits
+    and every leaf of the returned cache match the decode path fed the same
+    prompts token by token."""
     rng = np.random.default_rng(1)
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, size=(batch, length))).to(device)
     prefill = steps.make_prefill_step(cfg)
-    reset_counts(dops, fops)
+    reset_counts(kernels)
     t0 = time.perf_counter()
     last, cache = prefill(params, {"tokens": prompts})
     if device.type == "cuda":
         torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    launches = fops.launches
-    check(launches == cfg.num_layers,
-          f"flash kernel launched {launches} times, want {cfg.num_layers}")
-    check(dops.launches == 0 and dops.ref.calls == 0 and fops.ref.calls == 0,
-          "prefill ran another attention path")
+    launches = launches_of(kernels)
+    check(launches[kernel] == cfg.num_layers,
+          f"{kernel} launched {launches[kernel]} times, want {cfg.num_layers}")
+    check(all(n == 0 for name, n in launches.items() if name != kernel)
+          and all(ops.ref.calls == 0 for ops in kernels.values()),
+          f"prefill ran another path: {launches}")
     decode = steps.make_serve_step(cfg)
     st = api.allocate_decode_state(cfg, batch, length, device)
     for p in range(length):
@@ -351,13 +399,89 @@ def phase_prefill(torch, np, cfg, params, device, dops, fops, steps, api,
     err = (last[:, 0] - lg).abs().max().item()
     check(torch.allclose(last[:, 0], lg, rtol=2e-3, atol=2e-3),
           f"prefill vs decode last logits differ by {err}")
-    a = cfg.attention
-    kc = cache["periods"]["sub0"]["attn"]["k"]
-    check(tuple(kc.shape) == (cfg.num_layers, batch, a.num_kv_heads, length,
-                              a.head_dim), f"cache shape {tuple(kc.shape)}")
-    print(f"prefill {prefill_s * 1e3:.1f} ms (first call); max |prefill - "
-          f"decode| last logit = {err:.3e} (rtol/atol 2e-3)", flush=True)
-    return dict(launches=launches, err=err, first_call_ms=prefill_s * 1e3)
+    state_err = 0.0
+    pre_leaves, dec_leaves = dict(_paths(cache)), dict(_paths(st))
+    check(pre_leaves.keys() == dec_leaves.keys(),
+          f"cache keys {sorted(pre_leaves)} vs {sorted(dec_leaves)}")
+    for path, pre in pre_leaves.items():
+        dec = dec_leaves[path]
+        check(pre.shape == dec.shape, f"{path}: cache shape "
+              f"{tuple(pre.shape)} vs {tuple(dec.shape)}")
+        state_err = max(state_err, (pre - dec).abs().max().item())
+        check(torch.allclose(pre, dec, rtol=2e-3, atol=2e-3),
+              f"prefill vs decode cache differ by {state_err}")
+    print(f"prefill {batch} x {length} tokens {prefill_s * 1e3:.1f} ms (first "
+          f"call); max |prefill - decode| last logit = {err:.3e}, cache = "
+          f"{state_err:.3e} (rtol/atol 2e-3)", flush=True)
+    return dict(launches=launches[kernel], err=err, state_err=state_err,
+                first_call_ms=prefill_s * 1e3)
+
+
+def phase_server_solo(torch, np, cfg, params, device, serve, max_len=512):
+    """Each request served in a 2-slot batch gets, at every step, the logits
+    it gets alone in a fresh 1-slot server.  A decodes while B is admitted
+    into the other slot; C is admitted into the slot A freed.  The tokens
+    fed are fixed lists, not the greedy ones, so the streams cannot part on
+    a near tie."""
+    rng = np.random.default_rng(2)
+    lens, news = {0: 40, 1: 100, 2: 64}, {0: 4, 1: 8, 2: 6}
+    prompts = {i: rng.integers(0, cfg.vocab_size, size=n)
+               for i, n in lens.items()}
+    fed = {i: [int(prompts[i][-1])] + rng.integers(
+        0, cfg.vocab_size, size=news[i] - 1).tolist() for i in lens}
+
+    def server_of(slots):
+        server = serve.BatchedServer(cfg, slots, max_len, device=device)
+        server.load(params)
+        seen = {i: [] for i in lens}
+        inner = server.decode
+
+        def fixed_tokens(p, state, tokens, pos):
+            tokens = tokens.clone()
+            live = [(s, r) for s, r in enumerate(server.slot_req) if r]
+            for s, r in live:
+                tokens[s] = fed[r.rid][len(r.out)]
+            logits, state = inner(p, state, tokens, pos)
+            for s, r in live:
+                seen[r.rid].append(logits[s].clone())
+            return logits, state
+
+        server.decode = fixed_tokens
+        return server, seen
+
+    def request(i):
+        return serve.Request(i, prompts[i], max_new=news[i])
+
+    want = {}
+    for i in lens:
+        server, seen = server_of(1)
+        server.admit(request(i))
+        while server.slot_req[0] is not None:
+            server.step()
+        want[i] = seen[i]
+    server, got = server_of(2)
+    reqs = {0: request(0), 1: request(1), 2: request(2)}
+    server.admit(reqs[0])
+    server.step()
+    server.step()
+    check(server.admit(reqs[1]), "B was not admitted")    # while A decodes
+    while not all(r.done for r in reqs.values()):
+        if reqs[0].done and reqs[2].t_admit == 0.0:
+            check(server.admit(reqs[2]) and server.slot_req[0] is reqs[2]
+                  and not reqs[1].done, "C was not admitted into A's slot "
+                  "while B decodes")
+        server.step()
+    err = 0.0
+    for i in lens:
+        check(len(got[i]) == len(want[i]) == news[i],
+              f"request {i}: {len(got[i])} steps, want {news[i]}")
+        for w, h in zip(want[i], got[i]):
+            check(bool(torch.isfinite(h).all()), "non-finite logits")
+            err = max(err, (w - h).abs().max().item())
+    check(err <= 1e-4, f"server vs solo logits differ by {err}")
+    print(f"max |2-slot server - solo| logit = {err:.3e} over "
+          f"{sum(news.values())} steps (atol 1e-4)", flush=True)
+    return err
 
 
 def main(argv=None) -> int:
@@ -382,9 +506,12 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rwkv6_scan import ops as kops
     from repro_torch.launch import serve, steps
     from repro_torch.models import api
 
+    kernels = {"decode_attention": dops, "flash_attention": fops,
+               "rwkv6_scan": kops}
     t_start = time.perf_counter()
     # ---- 1. build and device -------------------------------------------
     print("== 1. build and device", flush=True)
@@ -403,7 +530,7 @@ def main(argv=None) -> int:
     # ---- 2. kernels against plain versions ------------------------------
     print("== 2. kernels against their plain versions on the card", flush=True)
     gen = torch.Generator(device=device).manual_seed(0)
-    rows = {"decode_attention": [], "flash_attention": []}
+    rows = {name: [] for name in kernels}
     for dtype in ("float32", "bfloat16"):
         for B in (4, 8):
             for S in (512, 1024):
@@ -421,18 +548,25 @@ def main(argv=None) -> int:
                      (2, 32, 8, 512, 512, 128, True, 0)):     # minitron's GQA
             rows["flash_attention"].append(
                 flash_case(torch, F, fops, *case, dtype=dtype, gen=gen))
+        # rwkv6-1.6b: one prompt's 32 heads of 64 over 16-256 tokens, four
+        # prompts at once, and two odd shapes (ragged key rows and columns)
+        for N, S, hd in ((32, 16, 64), (32, 131, 64), (32, 256, 64),
+                         (128, 256, 64), (6, 33, 16), (4, 100, 128)):
+            rows["rwkv6_scan"].append(
+                rwkv_case(torch, kops, N, S, hd, dtype, gen))
     for name, rs in rows.items():
         for row in rs:
             _print_row(name, row)
-    # each kernel at the shape the main path gives it (f32, as served)
+    # each kernel at the shape the main paths give it (f32, as served)
     main_rows = {
         "decode_attention": decode_case(torch, F, dops, 4, 16, 16, 512, 64,
                                         [17, 130, 256, 511], "float32", gen),
         "flash_attention": rows["flash_attention"][1],
+        "rwkv6_scan": rows["rwkv6_scan"][2],
     }
     _print_row("decode (main)", main_rows["decode_attention"])
 
-    # ---- 3-5. the main path at full width -------------------------------
+    # ---- 3-5. qwen1.5-0.5b at full width ---------------------------------
     cfg = dataclasses.replace(get_arch("qwen1.5-0.5b").model,
                               param_dtype="float32", compute_dtype="float32")
     params = api.init_params(torch.Generator(device=device).manual_seed(0), cfg)
@@ -440,25 +574,60 @@ def main(argv=None) -> int:
     print(f"== 3. serve {cfg.name} at full width ({cfg.num_layers} layers, "
           f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
           f"{n_params / 1e6:.1f} M f32 params)", flush=True)
-    served = phase_serve(torch, np, cfg, params, device, dops, fops, serve)
+    served = phase_serve(torch, np, cfg, params, device, kernels, serve)
+    n = served["launches"]
+    check(n["decode_attention"] == cfg.num_layers * served["decode_calls"],
+          f"decode kernel launched {n['decode_attention']} times for "
+          f"{served['decode_calls']} decode calls of {cfg.num_layers} layers")
+    check(n["decode_attention"] > 0, "decode kernel never launched")
+    check(n["flash_attention"] == n["rwkv6_scan"] == 0,
+          f"serving {cfg.name} launched another kernel: {n}")
     prof = phase_profile(torch, cfg, params, device, steps, api)
     print("== 4. ragged batch equals solo decode at full width", flush=True)
     ragged_err = phase_ragged(torch, cfg, params, device, steps, api)
     print("== 5. prefill 4 x 256 tokens through flash_attention", flush=True)
-    pre = phase_prefill(torch, np, cfg, params, device, dops, fops, steps, api)
+    pre = phase_prefill(torch, np, cfg, params, device, kernels,
+                        "flash_attention", steps, api)
+    del params
+    torch.cuda.empty_cache()
 
-    # ---- 6. summary ------------------------------------------------------
-    launches = {"decode_attention": served["launches"],
-                "flash_attention": pre["launches"]}
-    print(f"kernels: decode_attention={launches['decode_attention']} "
-          f"flash_attention={launches['flash_attention']}")
+    # ---- 6-7. rwkv6-1.6b at full width -----------------------------------
+    rcfg = dataclasses.replace(get_arch("rwkv6-1.6b").model,
+                               param_dtype="float32", compute_dtype="float32")
+    rparams = api.init_params(torch.Generator(device=device).manual_seed(0),
+                              rcfg)
+    n_params = sum(t.numel() for t in _leaves(rparams))
+    print(f"== 6. serve {rcfg.name} at full width ({rcfg.num_layers} layers, "
+          f"d_model {rcfg.d_model}, vocab {rcfg.vocab_size}, "
+          f"{n_params / 1e6:.1f} M f32 params)", flush=True)
+    served_r = phase_serve(torch, np, rcfg, rparams, device, kernels, serve)
+    n = served_r["launches"]
+    want = rcfg.num_layers * 8
+    check(n["rwkv6_scan"] == want, f"rwkv6_scan launched {n['rwkv6_scan']} "
+          f"times, want {rcfg.num_layers} layers x 8 admissions = {want}")
+    check(n["decode_attention"] == n["flash_attention"] == 0,
+          f"serving {rcfg.name} launched an attention kernel: {n}")
+    prof_r = phase_profile(torch, rcfg, rparams, device, steps, api)
+    print("== 7a. prefill 2 x 256 tokens through rwkv6_scan", flush=True)
+    pre_r = phase_prefill(torch, np, rcfg, rparams, device, kernels,
+                          "rwkv6_scan", steps, api, batch=2)
+    print("== 7b. 2-slot server equals solo at full width", flush=True)
+    solo_err = phase_server_solo(torch, np, rcfg, rparams, device, serve)
+
+    # ---- summary ---------------------------------------------------------
+    launches = {"decode_attention": served["launches"]["decode_attention"],
+                "flash_attention": pre["launches"],
+                "rwkv6_scan": served_r["launches"]["rwkv6_scan"]}
+    print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
     source = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                    "src/repro/kernels/decode_attention/kernel.py:64"),
               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                                  "src/repro/kernels/flash_attention/kernel.py:71")}
-    kernels = []
+                                  "src/repro/kernels/flash_attention/kernel.py:71"),
+              "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                             "src/repro/kernels/rwkv6_scan/kernel.py:73")}
+    kernel_rows = []
     for name, row in main_rows.items():
-        kernels.append({
+        kernel_rows.append({
             "name": name, "route": "cuda", "source": source[name][0],
             "replaces": source[name][1], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -469,12 +638,14 @@ def main(argv=None) -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             {"card": card, "build_s": build_s, "cases": rows,
-             "kernels": kernels, "serve": served, "profile": prof,
+             "kernels": kernel_rows, "serve": served, "profile": prof,
              "ragged_err": ragged_err, "prefill": pre,
+             "serve_rwkv": served_r, "profile_rwkv": prof_r,
+             "prefill_rwkv": pre_r, "server_solo_err_rwkv": solo_err,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -482,11 +653,17 @@ def main(argv=None) -> int:
 
 
 def _leaves(tree):
+    for _, leaf in _paths(tree):
+        yield leaf
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) pairs of a nested dict."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}/{k}")
     else:
-        yield tree
+        yield prefix, tree
 
 
 if __name__ == "__main__":

@@ -3,4 +3,5 @@ each of them with repro_torch.core.config's registry (``--arch <id>``)."""
 from repro_torch.configs import (  # noqa: F401
     minitron_8b,
     qwen1_5_0_5b,
+    rwkv6_1_6b,
 )

@@ -3,8 +3,8 @@
 The port's own copy of the dataclasses and the architecture registry of
 ``repro.core.config``: the port imports nothing of the JAX package, so the
 fields it reads are kept here with the same names and defaults.  Sub-configs
-of families the port does not run yet (MoE, SSM, RWKV, frontends, convnets)
-stay as ``Optional`` fields that hold ``None`` in every registered config.
+of families the port does not run yet (MoE, SSM, frontends, convnets) stay
+as ``Optional`` fields that hold ``None`` in every registered config.
 """
 from __future__ import annotations
 
@@ -31,6 +31,16 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class RWKVConfig:
+    """RWKV-6 ("Finch") time-mix / channel-mix block."""
+
+    head_dim: int = 64
+    decay_lora: int = 64            # rank of the data-dependent decay LoRA
+    mix_lora: int = 32              # rank of the token-shift mix LoRA
+    gate_lora: int = 64
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
     family: str = "dense"
@@ -42,7 +52,7 @@ class ModelConfig:
     # families the port does not run yet; None in every registered config
     moe: Optional[Any] = None
     ssm: Optional[Any] = None
-    rwkv: Optional[Any] = None
+    rwkv: Optional[RWKVConfig] = None
     frontend: Optional[Any] = None
     convnet: Optional[Any] = None
     attn_every: int = 0

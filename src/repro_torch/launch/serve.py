@@ -1,10 +1,12 @@
 """Batched serving loop (PyTorch twin of ``repro.launch.serve``):
-continuous batching over token-by-token prefill and decode.
+continuous batching over prefill and decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --requests 8 --max-new 32              # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --smoke --device cpu                   # plain versions on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --smoke --device cpu                   # a recurrent model
 
 A request queue, a decode batch with in-flight slot reuse (a finished
 request's slot is refilled from the queue) and greedy sampling.  Every decode
@@ -13,6 +15,15 @@ its own depth, so slots at different depths share one batch.  The loop's
 admit/step/finish order, its per-slot position vectors and its event log are
 the reference server's, so the virtual scheduler in ``repro.serve_sim``
 stays its model.  The KV cache lives on the device and is written in place.
+
+Admission differs by model.  An attention model is prefilled token by token
+through the batch's decode step, as in the reference: the other slots decode
+token 0 at their own next position, which is overwritten later.  A model with
+recurrent state (RWKV) cannot take that: each such step would advance every
+other slot's state, and a reused slot would keep the previous request's.  So
+its prompt is prefilled alone, as a (1, L) batch, and the returned state
+replaces the slot's row.  Each request then gets the stream the model
+functions define for it alone (``prefill``, then ``decode_step``).
 """
 from __future__ import annotations
 
@@ -29,6 +40,7 @@ from repro_torch.core.config import get_arch
 from repro_torch.core.device import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import api
+from repro_torch.models.layers import tree_map
 
 
 @dataclass
@@ -61,7 +73,9 @@ class BatchedServer:
     the port's decode step on ``device`` (``cuda`` unless the caller asks
     for the CPU); tests inject a stub to exercise the scheduling loop.
     ``tokens`` and ``pos`` reach it as int32 tensors on ``device``; ``pos``
-    is always the per-slot position vector.
+    is always the per-slot position vector.  When ``cfg`` has a layer whose
+    mixer is not attention, ``admit`` prefills the prompt alone and writes
+    the state into the slot's rows.
     """
 
     def __init__(self, cfg, batch_slots: int, max_len: int,
@@ -81,6 +95,9 @@ class BatchedServer:
         else:
             self.state = state
             self.decode = decode_fn
+        recurrent = cfg is not None and \
+            any(kind != "attn" for kind in cfg.layer_kinds())
+        self.prefill = steps_lib.make_prefill_step(cfg) if recurrent else None
         self.params = None
         # ("admit", rid) | ("step", rids) | ("finish", rid); recorded only
         # with record_events, unbounded otherwise
@@ -100,7 +117,8 @@ class BatchedServer:
         return vec
 
     def admit(self, req: Request) -> bool:
-        """Prefill a request into a free slot, token by token."""
+        """Prefill a request into a free slot: alone through ``prefill`` for
+        a recurrent model, else token by token."""
         try:
             slot = self.slot_req.index(None)
         except ValueError:
@@ -109,12 +127,19 @@ class BatchedServer:
         req.t_admit = time.perf_counter()
         if self.record_events:
             self.events.append(("admit", req.rid))
-        for pos, tok in enumerate(req.prompt):
-            tokens = np.zeros((self.slots,), np.int32)
-            tokens[slot] = tok
-            _, self.state = self.decode(
-                self.params, self.state, self._tensor(tokens),
-                self._tensor(self._pos_vector(slot, pos)))
+        if self.prefill is not None:
+            prompt = self._tensor(np.asarray(req.prompt, np.int32)[None])
+            _, cache = self.prefill(self.params, {"tokens": prompt})
+            # every leaf is (periods, batch, ...): the slot's row, in place
+            tree_map(lambda dst, src: dst[:, slot].copy_(src[:, 0]),
+                     self.state, cache)
+        else:
+            for pos, tok in enumerate(req.prompt):
+                tokens = np.zeros((self.slots,), np.int32)
+                tokens[slot] = tok
+                _, self.state = self.decode(
+                    self.params, self.state, self._tensor(tokens),
+                    self._tensor(self._pos_vector(slot, pos)))
         self.slot_pos[slot] = len(req.prompt)
         return True
 

@@ -16,11 +16,11 @@ from repro_torch.models import lm as LM
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family == "dense" or (cfg.family == "ssm" and cfg.rwkv is not None):
         return LM
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet; the port runs 'dense' "
-        "(ROADMAP.md, Queue 1 items 8-13)")
+        f"family {cfg.family!r} is not ported yet; the port runs 'dense' and "
+        "RWKV-6 'ssm' (ROADMAP.md, Queue 1 items 8-13)")
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig):

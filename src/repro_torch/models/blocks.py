@@ -5,9 +5,9 @@ A model is ``N repetitions of a period``, a period being the minimal
 repeating list of (mixer_kind, ffn_kind) layer descriptors.  Period
 parameters are stacked on a leading axis, as in the JAX package, so its
 param tree converts key for key; the reference's ``lax.scan`` over that axis
-is a Python loop here.  The port runs ("attn", "dense") blocks: the other
-mixers and FFNs, and the dense prefix blocks in front of an MoE stack, wait
-for their slices (ROADMAP.md, Queue 1 items 8-11).
+is a Python loop here.  The port runs ("attn", "dense") and RWKV-6
+("rwkv", "rwkv_cm") blocks: Mamba, MoE and the dense prefix blocks in front
+of an MoE stack wait for their slices (ROADMAP.md, Queue 1 items 8-10).
 """
 from __future__ import annotations
 
@@ -18,7 +18,11 @@ import torch
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as R6
 from repro_torch.models.layers import Params
+
+# the (mixer, ffn) blocks the port runs
+PORTED_BLOCKS = (("attn", "dense"), ("rwkv", "rwkv_cm"))
 
 
 # ---------------------------------------------------------------------------
@@ -46,10 +50,10 @@ def block_pattern(cfg: ModelConfig) -> Tuple[List, List, int]:
 
 def _ported_pattern(cfg: ModelConfig) -> Tuple[List, int]:
     prefix, period, n_periods = block_pattern(cfg)
-    if prefix or any(d != ("attn", "dense") for d in period):
+    if prefix or any(d not in PORTED_BLOCKS for d in period):
         raise NotImplementedError(
             f"{cfg.name}: blocks {prefix + period} are not ported yet; the "
-            "port runs ('attn', 'dense') stacks (ROADMAP.md, Queue 1)")
+            f"port runs stacks of {PORTED_BLOCKS} (ROADMAP.md, Queue 1)")
     return period, n_periods
 
 
@@ -60,19 +64,27 @@ def _ported_pattern(cfg: ModelConfig) -> Tuple[List, int]:
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str
                ) -> Params:
-    """An ("attn", "dense") block; the stack admits no other kind."""
+    """An ("attn", "dense") or ("rwkv", "rwkv_cm") block."""
     dt = L.dtype_of(cfg.param_dtype)
-    return {
-        "norm1": L.init_norm(cfg.d_model, cfg.norm, dt, gen.device),
-        "attn": ATT.init_attention(gen, cfg),
-        "norm2": L.init_norm(cfg.d_model, cfg.norm, dt, gen.device),
-        "ffn": L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.act, dt),
-    }
+    p: Params = {"norm1": L.init_norm(cfg.d_model, cfg.norm, dt, gen.device)}
+    if mixer == "attn":
+        p["attn"] = ATT.init_attention(gen, cfg)
+    else:
+        p["rwkv_tm"] = R6.init_time_mix(gen, cfg)
+    p["norm2"] = L.init_norm(cfg.d_model, cfg.norm, dt, gen.device)
+    if ffn == "dense":
+        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.act, dt)
+    else:
+        p["rwkv_cm"] = R6.init_channel_mix(gen, cfg)
+    return p
 
 
 def block_cache_spec(cfg: ModelConfig, mixer: str, ffn: str,
                      batch: int, max_len: int) -> Params:
-    return {"attn": ATT.attention_cache_spec(cfg, batch, max_len)}
+    if mixer == "attn":
+        return {"attn": ATT.attention_cache_spec(cfg, batch, max_len)}
+    # shift_t (time mix), shift_c (channel mix) and the wkv state
+    return {"rwkv_tm": R6.rwkv_cache_spec(cfg, batch)}
 
 
 def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -82,14 +94,30 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (x, new_cache)."""
     cd = L.dtype_of(cfg.compute_dtype)
+    new_cache: Params = {}
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
-    y, c = ATT.apply_attention(p["attn"], h, cfg, mode=mode,
-                               cache=None if cache is None else cache["attn"],
-                               pos=pos, causal=causal)
+    if mixer == "attn":
+        y, c = ATT.apply_attention(p["attn"], h, cfg, mode=mode,
+                                   cache=None if cache is None else cache["attn"],
+                                   pos=pos, causal=causal)
+        if c is not None:
+            new_cache["attn"] = c
+    else:  # rwkv time mix
+        y, c = R6.apply_time_mix(p["rwkv_tm"], h, cfg, mode=mode,
+                                 cache=None if cache is None else cache["rwkv_tm"])
+        if c is not None:
+            new_cache["rwkv_tm"] = c
     x = x + y.to(x.dtype)
     h = L.apply_norm(p["norm2"], x, cfg.norm_eps)
-    x = x + L.apply_ffn(p["ffn"], h, cfg.act, cd).to(x.dtype)
-    return x, (None if c is None else {"attn": c})
+    if ffn == "dense":
+        y = L.apply_ffn(p["ffn"], h, cfg.act, cd)
+    else:  # rwkv channel mix: its state joins the time mix's
+        y, c = R6.apply_channel_mix(p["rwkv_cm"], h, cfg, mode=mode,
+                                    cache=None if cache is None else cache["rwkv_tm"])
+        if c is not None:
+            new_cache.setdefault("rwkv_tm", {}).update(c)
+    x = x + y.to(x.dtype)
+    return x, (new_cache or None)
 
 
 # ---------------------------------------------------------------------------

@@ -80,7 +80,8 @@ def allocate_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 def prefill(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Params]:
     """Process the full prompt; returns (last-position logits (B, 1, V),
-    cache holding exactly the prompt's S positions)."""
+    cache): attention caches hold exactly the prompt's S positions, RWKV
+    caches the recurrent state after the prompt's last token."""
     x = _embed_inputs(p, cfg, batch)
     x, cache = B.apply_stack(p["stack"], x, cfg, mode="prefill")
     x = L.apply_norm(p["final_norm"], x, cfg.norm_eps)
@@ -91,8 +92,9 @@ def decode_step(p: Params, cfg: ModelConfig, state: Params,
                 tokens: torch.Tensor, pos: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B,) int; pos: scalar or per-slot (B,) int
-    (cache write index; row b attends to [0, pos[b]]).  Writes the cache in
-    place and returns (logits (B, V) f32, the same state)."""
+    (attention's cache write index; row b attends to [0, pos[b]]; RWKV
+    layers carry their position in their state and do not read it).  Writes
+    the cache in place and returns (logits (B, V) f32, the same state)."""
     cd = L.dtype_of(cfg.compute_dtype)
     x = L.embed(p["embed"], tokens[:, None], cd)
     x, state = B.apply_stack(p["stack"], x, cfg, mode="decode",

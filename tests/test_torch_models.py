@@ -22,6 +22,8 @@ from repro_torch.models import api as tapi
 from repro_torch.models import attention as tatt
 
 ARCHS = ["qwen1.5-0.5b", "minitron-8b"]
+# every arch the port registers (rwkv6's parity tests: test_torch_rwkv6.py)
+PORTED_ARCHS = ARCHS + ["rwkv6-1.6b"]
 ATOL = 1e-4          # the reference's own bound is 2e-3 (test_models.py)
 B, T, MAX_LEN = 2, 12, 16
 
@@ -65,13 +67,13 @@ def _close(jax_out, torch_out, atol=ATOL):
 
 
 def test_configs_are_copies():
-    for arch in ARCHS:
+    for arch in PORTED_ARCHS:
         j, t = jax_get_arch(arch), tconfig.get_arch(arch)
         for jc, tc in ((j.model, t.model), (j.smoke, t.smoke)):
             assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
         assert (j.shapes, j.skip_shapes, j.source) == \
             (t.shapes, t.skip_shapes, t.source)
-    assert tconfig.list_archs() == sorted(ARCHS)
+    assert tconfig.list_archs() == sorted(PORTED_ARCHS)
     with pytest.raises(KeyError, match="available"):
         tconfig.get_arch("deepseek-v2-236b")
 
