@@ -1,6 +1,8 @@
 """Architecture configs the port runs.  Importing this package registers
 each of them with repro_torch.core.config's registry (``--arch <id>``)."""
 from repro_torch.configs import (  # noqa: F401
+    granite_moe_1b_a400m,
+    jamba_1_5_large_398b,
     minitron_8b,
     qwen1_5_0_5b,
     rwkv6_1_6b,

@@ -3,8 +3,8 @@
 The port's own copy of the dataclasses and the architecture registry of
 ``repro.core.config``: the port imports nothing of the JAX package, so the
 fields it reads are kept here with the same names and defaults.  Sub-configs
-of families the port does not run yet (MoE, SSM, frontends, convnets) stay
-as ``Optional`` fields that hold ``None`` in every registered config.
+of families the port does not run yet (frontends, convnets) stay as
+``Optional`` fields that hold ``None`` in every registered config.
 """
 from __future__ import annotations
 
@@ -31,6 +31,38 @@ class AttentionConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Token-choice top-k mixture-of-experts FFN."""
+
+    num_experts: int = 8
+    num_experts_per_tok: int = 2
+    num_shared_experts: int = 0
+    d_ff_expert: int = 512          # hidden dim of each routed expert
+    d_ff_shared: int = 0            # hidden dim of the shared expert(s)
+    moe_every: int = 1              # MoE FFN every k-th layer (others dense)
+    moe_offset: int = 0             # phase of the MoE layers within the period
+    first_k_dense: int = 0          # first k layers use a dense FFN
+    d_ff_dense: int = 0             # dense-FFN hidden dim for non-MoE layers
+    router_dtype: str = "float32"
+    router_noise: float = 0.0
+    aux_loss_coef: float = 0.001
+    capacity_factor: float = 1.25   # <=0 means dropless (C = S*K)
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-style selective state-space block."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0                # 0 => ceil(d_model / 16)
+
+    def resolved_dt_rank(self, d_model: int) -> int:
+        return self.dt_rank or -(-d_model // 16)
+
+
+@dataclass(frozen=True)
 class RWKVConfig:
     """RWKV-6 ("Finch") time-mix / channel-mix block."""
 
@@ -49,10 +81,10 @@ class ModelConfig:
     d_ff: int = 512
     vocab_size: int = 512
     attention: Optional[AttentionConfig] = None
-    # families the port does not run yet; None in every registered config
-    moe: Optional[Any] = None
-    ssm: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
+    # families the port does not run yet; None in every registered config
     frontend: Optional[Any] = None
     convnet: Optional[Any] = None
     attn_every: int = 0

@@ -7,6 +7,8 @@ continuous batching over prefill and decode.
         --smoke --device cpu                   # plain versions on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --smoke --device cpu                   # a recurrent model
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --smoke --device cpu   # Mamba/attn/MoE
 
 A request queue, a decode batch with in-flight slot reuse (a finished
 request's slot is refilled from the queue) and greedy sampling.  Every decode
@@ -19,11 +21,14 @@ stays its model.  The KV cache lives on the device and is written in place.
 Admission differs by model.  An attention model is prefilled token by token
 through the batch's decode step, as in the reference: the other slots decode
 token 0 at their own next position, which is overwritten later.  A model with
-recurrent state (RWKV) cannot take that: each such step would advance every
-other slot's state, and a reused slot would keep the previous request's.  So
-its prompt is prefilled alone, as a (1, L) batch, and the returned state
-replaces the slot's row.  Each request then gets the stream the model
-functions define for it alone (``prefill``, then ``decode_step``).
+recurrent state (RWKV, Mamba, the Jamba hybrid) cannot take that: each such
+step would advance every other slot's state, and a reused slot would keep the
+previous request's.  So its prompt is prefilled alone, as a (1, L) batch, and
+the returned cache is written into the slot's rows: a recurrent state whole,
+an attention cache of the prompt's L positions into the slot's first L
+(later positions are never read: a row attends up to its own ``pos``).  Each
+request then gets the stream the model functions define for it alone
+(``prefill``, then ``decode_step``).
 """
 from __future__ import annotations
 
@@ -75,7 +80,7 @@ class BatchedServer:
     ``tokens`` and ``pos`` reach it as int32 tensors on ``device``; ``pos``
     is always the per-slot position vector.  When ``cfg`` has a layer whose
     mixer is not attention, ``admit`` prefills the prompt alone and writes
-    the state into the slot's rows.
+    its cache into the slot's rows.
     """
 
     def __init__(self, cfg, batch_slots: int, max_len: int,
@@ -130,8 +135,7 @@ class BatchedServer:
         if self.prefill is not None:
             prompt = self._tensor(np.asarray(req.prompt, np.int32)[None])
             _, cache = self.prefill(self.params, {"tokens": prompt})
-            # every leaf is (periods, batch, ...): the slot's row, in place
-            tree_map(lambda dst, src: dst[:, slot].copy_(src[:, 0]),
+            tree_map(lambda dst, src: _write_slot(dst, src, slot),
                      self.state, cache)
         else:
             for pos, tok in enumerate(req.prompt):
@@ -177,6 +181,15 @@ class BatchedServer:
                     self.events.append(("finish", r.rid))
                 finished += 1
         return finished
+
+
+def _write_slot(dst: torch.Tensor, src: torch.Tensor, slot: int) -> None:
+    """``dst[:, slot] = src[:, 0]`` in place; both are (periods, batch, ...).
+    A leaf shorter than the slot's (an attention cache of the prompt's L
+    positions, (periods, 1, Hkv, L, hd), in a slot of max_len) fills the
+    leading part of each axis."""
+    region = tuple(slice(0, n) for n in src.shape[2:])
+    dst[:, slot][(slice(None),) + region].copy_(src[:, 0])
 
 
 def serve_summary(requests: List[Request]) -> str:

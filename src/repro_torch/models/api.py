@@ -15,12 +15,16 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.models import lm as LM
 
 
+# the decoder-only families the port runs ("vlm" waits for its prefix)
+_LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
 def _mod(cfg: ModelConfig):
-    if cfg.family == "dense" or (cfg.family == "ssm" and cfg.rwkv is not None):
+    if cfg.family in _LM_FAMILIES:
         return LM
     raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet; the port runs 'dense' and "
-        "RWKV-6 'ssm' (ROADMAP.md, Queue 1 items 8-13)")
+        f"family {cfg.family!r} is not ported yet; the port runs "
+        f"{_LM_FAMILIES} (ROADMAP.md, Queue 1 items 12-13)")
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig):

@@ -5,13 +5,14 @@ A model is ``N repetitions of a period``, a period being the minimal
 repeating list of (mixer_kind, ffn_kind) layer descriptors.  Period
 parameters are stacked on a leading axis, as in the JAX package, so its
 param tree converts key for key; the reference's ``lax.scan`` over that axis
-is a Python loop here.  The port runs ("attn", "dense") and RWKV-6
-("rwkv", "rwkv_cm") blocks: Mamba, MoE and the dense prefix blocks in front
-of an MoE stack wait for their slices (ROADMAP.md, Queue 1 items 8-10).
+is a Python loop here.  The port runs attention and Mamba mixers with dense
+or MoE FFNs (granite-moe, jamba) and RWKV-6 ("rwkv", "rwkv_cm") blocks; the
+dense prefix blocks in front of an MoE stack come with MLA (ROADMAP.md,
+Queue 1 item 9).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -19,10 +20,12 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.models import attention as ATT
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as R6
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import Params
 
 # the (mixer, ffn) blocks the port runs
-PORTED_BLOCKS = (("attn", "dense"), ("rwkv", "rwkv_cm"))
+PORTED_BLOCKS = (("attn", "dense"), ("attn", "moe"), ("ssm", "dense"),
+                 ("ssm", "moe"), ("rwkv", "rwkv_cm"))
 
 
 # ---------------------------------------------------------------------------
@@ -64,16 +67,22 @@ def _ported_pattern(cfg: ModelConfig) -> Tuple[List, int]:
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str
                ) -> Params:
-    """An ("attn", "dense") or ("rwkv", "rwkv_cm") block."""
+    """One block of ``PORTED_BLOCKS``."""
     dt = L.dtype_of(cfg.param_dtype)
     p: Params = {"norm1": L.init_norm(cfg.d_model, cfg.norm, dt, gen.device)}
     if mixer == "attn":
         p["attn"] = ATT.init_attention(gen, cfg)
+    elif mixer == "ssm":
+        p["ssm"] = SSM.init_ssm(gen, cfg)
     else:
         p["rwkv_tm"] = R6.init_time_mix(gen, cfg)
     p["norm2"] = L.init_norm(cfg.d_model, cfg.norm, dt, gen.device)
     if ffn == "dense":
-        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.act, dt)
+        d_ff = (cfg.moe.d_ff_dense if (cfg.moe and cfg.moe.d_ff_dense)
+                else cfg.d_ff)
+        p["ffn"] = L.init_ffn(gen, cfg.d_model, d_ff, cfg.act, dt)
+    elif ffn == "moe":
+        p["ffn_moe"] = L.init_moe(gen, cfg, dt)
     else:
         p["rwkv_cm"] = R6.init_channel_mix(gen, cfg)
     return p
@@ -83,6 +92,8 @@ def block_cache_spec(cfg: ModelConfig, mixer: str, ffn: str,
                      batch: int, max_len: int) -> Params:
     if mixer == "attn":
         return {"attn": ATT.attention_cache_spec(cfg, batch, max_len)}
+    if mixer == "ssm":
+        return {"ssm": SSM.ssm_cache_spec(cfg, batch)}
     # shift_t (time mix), shift_c (channel mix) and the wkv state
     return {"rwkv_tm": R6.rwkv_cache_spec(cfg, batch)}
 
@@ -91,9 +102,11 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                 mixer: str, ffn: str, *, mode: str,
                 cache: Optional[Params] = None, pos=None,
                 causal: bool = True,
-                ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (x, new_cache)."""
+                ) -> Tuple[torch.Tensor, Optional[Params], Union[torch.Tensor, float]]:
+    """Returns (x, new_cache, aux_loss); the aux loss of a block without MoE
+    is the number 0.0, which launches nothing on the device."""
     cd = L.dtype_of(cfg.compute_dtype)
+    aux = 0.0
     new_cache: Params = {}
     h = L.apply_norm(p["norm1"], x, cfg.norm_eps)
     if mixer == "attn":
@@ -102,6 +115,12 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                                    pos=pos, causal=causal)
         if c is not None:
             new_cache["attn"] = c
+    elif mixer == "ssm":
+        y, c = SSM.apply_ssm(p["ssm"], h, cfg, mode=mode,
+                             cache=None if cache is None else cache["ssm"],
+                             pos=pos)
+        if c is not None:
+            new_cache["ssm"] = c
     else:  # rwkv time mix
         y, c = R6.apply_time_mix(p["rwkv_tm"], h, cfg, mode=mode,
                                  cache=None if cache is None else cache["rwkv_tm"])
@@ -111,13 +130,15 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     h = L.apply_norm(p["norm2"], x, cfg.norm_eps)
     if ffn == "dense":
         y = L.apply_ffn(p["ffn"], h, cfg.act, cd)
+    elif ffn == "moe":
+        y, aux = L.apply_moe(p["ffn_moe"], h, cfg, compute_dtype=cd)
     else:  # rwkv channel mix: its state joins the time mix's
         y, c = R6.apply_channel_mix(p["rwkv_cm"], h, cfg, mode=mode,
                                     cache=None if cache is None else cache["rwkv_tm"])
         if c is not None:
             new_cache.setdefault("rwkv_tm", {}).update(c)
     x = x + y.to(x.dtype)
-    return x, (new_cache or None)
+    return x, (new_cache or None), aux
 
 
 # ---------------------------------------------------------------------------
@@ -126,14 +147,25 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """Periods are drawn one at a time into tensors stacked on the period
+    axis (allocated once, filled in place; a single period is a view), so
+    init never holds a second copy of the weights."""
     period, n_periods = _ported_pattern(cfg)
 
     def init_period():
         return {f"sub{j}": init_block(gen, cfg, m, f)
                 for j, (m, f) in enumerate(period)}
 
-    periods = [init_period() for _ in range(n_periods)]
-    return {"periods": L.tree_map(lambda *xs: torch.stack(xs), *periods)}
+    periods = (init_period() for _ in range(n_periods))
+    if n_periods == 1:
+        return {"periods": L.tree_map(lambda t: t[None], next(periods))}
+    stacked = None
+    for i, one in enumerate(periods):
+        if stacked is None:
+            stacked = L.tree_map(
+                lambda t: t.new_empty((n_periods,) + t.shape), one)
+        L.tree_map(lambda dst, src: dst[i].copy_(src), stacked, one)
+    return {"periods": stacked}
 
 
 def stack_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> Params:
@@ -147,11 +179,13 @@ def stack_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> Params:
 def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 mode: str, cache: Optional[Params] = None, pos=None,
                 causal: bool = True,
-                ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Run the periods in order.  Returns (x, new_cache): in decode the
-    cache tensors themselves, updated in place; in prefill a new cache
-    stacked on the period axis; in train None."""
+                ) -> Tuple[torch.Tensor, Optional[Params], Union[torch.Tensor, float]]:
+    """Run the periods in order.  Returns (x, new_cache, total_aux): the
+    cache is, in decode, the cache tensors themselves, updated in place; in
+    prefill a new cache stacked on the period axis; in train None.  The aux
+    loss is 0.0 for a stack without MoE."""
     period, n_periods = _ported_pattern(cfg)
+    total_aux = 0.0
     per_period = []
     for i in range(n_periods):
         p_params = L.tree_map(lambda t: t[i], params["periods"])
@@ -159,14 +193,17 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
             L.tree_map(lambda t: t[i], cache["periods"])
         caches_out = {}
         for j, (m, f) in enumerate(period):
-            x, c = apply_block(p_params[f"sub{j}"], x, cfg, m, f, mode=mode,
-                               cache=None if p_cache is None else p_cache[f"sub{j}"],
-                               pos=pos, causal=causal)
+            x, c, aux = apply_block(
+                p_params[f"sub{j}"], x, cfg, m, f, mode=mode,
+                cache=None if p_cache is None else p_cache[f"sub{j}"],
+                pos=pos, causal=causal)
+            total_aux = total_aux + aux
             if c is not None:
                 caches_out[f"sub{j}"] = c
         per_period.append(caches_out)
     if mode == "decode":
-        return x, cache
+        return x, cache, total_aux
     if mode == "prefill":
-        return x, {"periods": L.tree_map(lambda *xs: torch.stack(xs), *per_period)}
-    return x, None
+        return x, {"periods": L.tree_map(lambda *xs: torch.stack(xs),
+                                         *per_period)}, total_aux
+    return x, None, total_aux

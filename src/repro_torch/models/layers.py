@@ -9,7 +9,7 @@ device; they use the reference's distributions and scales, not its bits.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +36,17 @@ def dtype_of(name: str) -> torch.dtype:
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
+
+
+def _normal_stack(gen: torch.Generator, n: int, shape, scale: float, dtype
+                  ) -> torch.Tensor:
+    """``n`` draws of ``_normal`` stacked on a leading axis, drawn one at a
+    time into the stacked tensor: no f32 temporary of the whole stack."""
+    out = torch.empty((n,) + tuple(shape), dtype=dtype, device=gen.device)
+    for i in range(n):
+        out[i] = _normal(gen, shape, scale, dtype)
+    return out
 
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -245,6 +255,103 @@ def apply_ffn(p: Params, x: torch.Tensor, act: str,
     else:
         raise ValueError(act)
     return linear(p["w_down"], h, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: grouped, capacity-based, one-hot dispatch and combine,
+# with the reference's Switch/T5X semantics (tokens over an expert's
+# capacity contribute zero).  The expert products are plain batched matrix
+# products over all E experts, as the reference leaves them to XLA.
+# ---------------------------------------------------------------------------
+
+
+def init_moe(gen: torch.Generator, cfg, dtype) -> Params:
+    """The router is f32 whatever ``dtype`` is, as in the reference; each
+    expert's matrices are drawn one expert at a time."""
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
+    scale_in = 1.0 / math.sqrt(d)
+    p = {
+        "router": init_linear(gen, d, e, torch.float32, scale=scale_in),
+        "w_up": _normal_stack(gen, e, (d, f), scale_in, dtype),
+        "w_gate": _normal_stack(gen, e, (d, f), scale_in, dtype),
+        "w_down": _normal_stack(gen, e, (f, d), 1.0 / math.sqrt(f), dtype),
+    }
+    if m.num_shared_experts:
+        f_sh = m.d_ff_shared or f * m.num_shared_experts
+        p["shared"] = init_ffn(gen, d, f_sh, "swiglu", dtype)
+    return p
+
+
+def moe_capacity(seq: int, num_experts: int, top_k: int,
+                 capacity_factor: float = 1.25) -> int:
+    c = int(math.ceil(seq * top_k / num_experts * capacity_factor))
+    return max(4, min(c, seq * top_k))
+
+
+MOE_GROUP_SIZE = 4096   # routing-group tokens; capacity scales with the
+#                         group, not the sequence
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg,
+              capacity_factor: Optional[float] = None,
+              compute_dtype=torch.bfloat16
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (G, S, D) groups of tokens (batch rows).  Returns (out, aux_loss).
+
+    The up and gate products come out in the compute dtype (f32 in the
+    reference); with a bf16 compute dtype that is one more rounding of each
+    before the SwiGLU."""
+    m = cfg.moe
+    G0, S0, D = x.shape
+    # re-group long sequences into fixed-size routing groups
+    if S0 > MOE_GROUP_SIZE and S0 % MOE_GROUP_SIZE == 0:
+        x = x.reshape(G0 * (S0 // MOE_GROUP_SIZE), MOE_GROUP_SIZE, D)
+    G, S, D = x.shape
+    E, K = m.num_experts, m.num_experts_per_tok
+    cf = m.capacity_factor if capacity_factor is None else capacity_factor
+    C = S * K if cf <= 0 else moe_capacity(S, E, K, cf)   # cf <= 0: dropless
+
+    logits = torch.einsum("gsd,de->gse", x.float(), p["router"]["w"].float())
+    probs = torch.softmax(logits, dim=-1)                          # (G,S,E)
+    gate_vals, gate_idx = torch.topk(probs, K, dim=-1)             # (G,S,K)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+
+    # expert one-hot per choice: (G,S,K,E)
+    onehot = F.one_hot(gate_idx, E).float()
+    # position of each (token, choice) within its expert queue; priority:
+    # earlier tokens first, then earlier choices
+    flat = onehot.reshape(G, S * K, E)
+    pos = (torch.cumsum(flat, dim=1) * flat - 1.0).reshape(G, S, K, E)
+    within_cap = (pos >= 0) & (pos < C)
+    pos = torch.clamp(pos, 0, C - 1).long()
+
+    # dispatch one-hot over capacity: (G,S,K,E,C) -> reduce over K
+    cap_oh = F.one_hot(pos, C).float() * within_cap[..., None] \
+        * onehot[..., None]
+    dispatch = cap_oh.sum(dim=2)                                   # (G,S,E,C)
+    combine = (cap_oh * gate_vals[..., None, None]).sum(dim=2)
+
+    cd = compute_dtype
+    xe = torch.einsum("gsec,gsd->egcd", dispatch.to(cd), x.to(cd))
+    xe = xe.reshape(E, G * C, D)
+    up = torch.bmm(xe, p["w_up"].to(cd))
+    gate = torch.bmm(xe, p["w_gate"].to(cd))
+    h = (F.silu(gate.float()) * up.float()).to(cd)
+    ye = torch.bmm(h, p["w_down"].to(cd)).reshape(E, G, C, D)
+    y = torch.einsum("gsec,egcd->gsd", combine.to(cd), ye)
+
+    if "shared" in p:
+        y = y + apply_ffn(p["shared"], x, "swiglu", cd)
+    if (G, S) != (G0, S0):
+        y = y.reshape(G0, S0, D)
+
+    # load-balancing aux loss (Switch): E * sum_e f_e * p_e
+    density = onehot.sum(dim=2).mean(dim=(0, 1))                   # (E,)
+    router_prob = probs.mean(dim=(0, 1))                           # (E,)
+    aux = E * torch.sum(density / K * router_prob)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

@@ -54,9 +54,9 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             mode: str = "train") -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward. Returns (logits (B, S, V) f32, aux)."""
     x = _embed_inputs(p, cfg, batch)
-    x, _ = B.apply_stack(p["stack"], x, cfg, mode="train")
+    x, _, aux = B.apply_stack(p["stack"], x, cfg, mode="train")
     x = L.apply_norm(p["final_norm"], x, cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     return _head(p, x, cfg), aux
 
 
@@ -80,10 +80,10 @@ def allocate_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 def prefill(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Params]:
     """Process the full prompt; returns (last-position logits (B, 1, V),
-    cache): attention caches hold exactly the prompt's S positions, RWKV
-    caches the recurrent state after the prompt's last token."""
+    cache): attention caches hold exactly the prompt's S positions, Mamba
+    and RWKV caches the recurrent state after the prompt's last token."""
     x = _embed_inputs(p, cfg, batch)
-    x, cache = B.apply_stack(p["stack"], x, cfg, mode="prefill")
+    x, cache, _ = B.apply_stack(p["stack"], x, cfg, mode="prefill")
     x = L.apply_norm(p["final_norm"], x, cfg.norm_eps)
     return _head(p, x[:, -1:], cfg), cache
 
@@ -92,12 +92,12 @@ def decode_step(p: Params, cfg: ModelConfig, state: Params,
                 tokens: torch.Tensor, pos: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Params]:
     """One decode step.  tokens: (B,) int; pos: scalar or per-slot (B,) int
-    (attention's cache write index; row b attends to [0, pos[b]]; RWKV
-    layers carry their position in their state and do not read it).  Writes
+    (attention's cache write index; row b attends to [0, pos[b]]; Mamba and
+    RWKV layers carry their position in their state and do not read it).  Writes
     the cache in place and returns (logits (B, V) f32, the same state)."""
     cd = L.dtype_of(cfg.compute_dtype)
     x = L.embed(p["embed"], tokens[:, None], cd)
-    x, state = B.apply_stack(p["stack"], x, cfg, mode="decode",
-                             cache=state, pos=pos)
+    x, state, _ = B.apply_stack(p["stack"], x, cfg, mode="decode",
+                                cache=state, pos=pos)
     x = L.apply_norm(p["final_norm"], x, cfg.norm_eps)
     return _head(p, x, cfg)[:, 0], state

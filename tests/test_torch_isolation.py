@@ -26,7 +26,9 @@ def test_port_files_exist():
                  "launch/serve.py", "core/config.py", "configs/qwen1_5_0_5b.py",
                  "configs/minitron_8b.py", "kernels/decode_attention/ops.py",
                  "kernels/flash_attention/ops.py", "models/rwkv6.py",
-                 "configs/rwkv6_1_6b.py", "kernels/rwkv6_scan/ops.py"):
+                 "configs/rwkv6_1_6b.py", "kernels/rwkv6_scan/ops.py",
+                 "models/ssm.py", "configs/jamba_1_5_large_398b.py",
+                 "configs/granite_moe_1b_a400m.py", "kernels/ssm_scan/ops.py"):
         assert f"src/repro_torch/{twin}" in names
     assert "chip_smoke.py" in names
 

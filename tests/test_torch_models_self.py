@@ -4,6 +4,7 @@ full forward, for the qwen1.5 and minitron smoke configs with the port's own
 random params.
 """
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -58,12 +59,24 @@ def test_prefill_matches_forward(model):
 
 
 def test_unported_families_raise():
+    """What the port does not run yet raises, pointing at ROADMAP.md: MLA
+    (at init and at apply), the dense prefix blocks of an MoE stack,
+    enc-dec, audio, the convnet, and a VLM (its family, and a modality
+    frontend on a decoder)."""
     cfg = Model("qwen1.5-0.5b").cfg
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.init_params(torch.Generator(), dataclasses.replace(cfg, family="moe"))
     mla = dataclasses.replace(cfg, attention=dataclasses.replace(
         cfg.attention, kind="mla"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tatt.apply_attention({}, torch.zeros(1, 1, 64), mla, mode="train")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.init_params(torch.Generator(), mla)
+    prefix = dataclasses.replace(cfg, family="moe", moe=tconfig.MoEConfig(
+        num_experts=4, d_ff_expert=64, first_k_dense=1))
+    for bad in (mla, prefix) + tuple(dataclasses.replace(cfg, family=f)
+                                     for f in ("encdec", "audio", "convnet",
+                                               "vlm")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tapi.init_params(torch.Generator(), bad)
+    params = tapi.init_params(torch.Generator().manual_seed(0), cfg)
+    vlm = dataclasses.replace(cfg, frontend=types.SimpleNamespace(
+        kind="patch", num_prefix=4))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tapi.forward(params, vlm, {"tokens": torch.zeros(1, 3, dtype=torch.long)})
