@@ -10,7 +10,9 @@ Phases, in order; any failed check ends the run with a non-zero exit:
 2. hold each kernel against its plain PyTorch version on the card, in f32
    and bf16, at the main paths' shapes, and time the kernel, the plain
    version and, where there is one, a PyTorch library call that computes
-   the same function;
+   the same function: device time (each timed batch waits behind
+   ``torch.cuda._sleep`` until the host has enqueued it) and, as ``wall_ms``,
+   the time through the wrapper;
 3. serve 8 requests with the port's ``BatchedServer`` on qwen1.5-0.5b at
    full width (24 layers, d_model 1024, vocab 151,936, f32, random weights
    from a seed): every decode step must go through the decode kernel;
@@ -47,8 +49,11 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -56,6 +61,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
+# the port's kernels, by the name of their __global__ function (each is
+# defined at the start of a line of src/repro_torch/csrc/*.cu)
+PORT_KERNELS = {name for src in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")
+                for name in re.findall(r"^(\w+_kernel)\(", src.read_text(), re.M)}
 # H100 SXM data sheet peaks (dense), used for each kernel's bound
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -80,23 +89,97 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> float:
-    """Median over ``reps`` of the mean time of ``inner`` back-to-back
-    calls, by CUDA events, after warm-up."""
+@functools.lru_cache(maxsize=None)
+def _cycles_per_ms(torch) -> float:
+    """Device clock cycles per ms of ``torch.cuda._sleep``, read once."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> tuple:
+    """(device ms, wall ms) of one call: medians over ``reps`` of the mean
+    of ``inner`` back-to-back calls, by CUDA events, after warm-up.
+
+    The device figure enqueues each batch behind ``torch.cuda._sleep`` long
+    enough to cover the host's enqueue of the batch (twice the time the host
+    took for one batch, plus 0.2 ms), so the events time the device's work
+    alone.  The wall figure has no sleep: below ~0.05 ms a call it reads the
+    host's time per call (checks, allocation, the launch); it is the only
+    figure this script gave before it timed the device."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return sorted(times)[len(times) // 2]
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int((2 * host_ms + 0.2) * _cycles_per_ms(torch))
+    out = []
+    for sleep in (True, False):
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if sleep:
+                torch.cuda._sleep(cycles)
+            start.record()
+            for _ in range(inner):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / inner)
+        out.append(sorted(times)[len(times) // 2])
+    return tuple(out)
+
+
+def _timings(torch, kernel, plain, library, plain_reps=(7, 10)) -> dict:
+    """Device and wall ms of the kernel, its plain version and the library
+    call (None where there is none)."""
+    ms, wall = time_ms(torch, kernel)
+    plain_ms, plain_wall = time_ms(torch, plain, *plain_reps)
+    lib_ms, lib_wall = time_ms(torch, library) if library else (None, None)
+    return dict(ms=ms, wall_ms=wall, plain_ms=plain_ms, plain_wall_ms=plain_wall,
+                library_ms=lib_ms, library_wall_ms=lib_wall)
+
+
+def _ptxas_summary(log: str) -> list:
+    """(kernel, "N registers, S bytes spill stores") per kernel that
+    ``nvcc -Xptxas -v`` reported, the kernel's name cut from its mangling."""
+    out, kernel, spill = [], None, ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            mangled = line.rsplit(" ", 1)[-1]
+            kernel = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "",
+                            mangled).split("EEv")[0]
+        elif "spill stores" in line:
+            spill = line.split(",")[1].strip()
+        elif "registers" in line and kernel:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((kernel, f"{regs} registers, {spill}"))
+            kernel = None
+    return out
+
+
+def _tensor_core_ops(so: Path, op: str) -> tuple:
+    """(count, how many of them wait for their group's end (gsb0), first)
+    of the SASS instructions named ``op`` (HGMMA, HMMA) in a built kernel
+    library, by cuobjdump.  Only a group's last HGMMA waits unless ptxas
+    serialized the group."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()}")
+    found = [line.split("*/", 1)[1].split(";")[0].strip()
+             for line in res.stdout.splitlines() if f" {op}." in line]
+    return (len(found), sum("gsb0" in f for f in found),
+            found[0] if found else None)
 
 
 def gpu_name_and_power_limit() -> str:
@@ -164,9 +247,8 @@ def decode_case(torch, F, dops, B, Hq, Hkv, S, hd, kv_len, dtype, gen):
     return dict(
         shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} hd={hd} kv_len={kv_len}",
         dtype=dtype, max_abs_err=err,
-        ms=time_ms(torch, lambda: dops.decode_attention(q, k, v, lens)),
-        plain_ms=time_ms(torch, lambda: dops.decode_attention_ref(q, k, v, lens)),
-        library_ms=time_ms(torch, library),
+        **_timings(torch, lambda: dops.decode_attention(q, k, v, lens),
+                   lambda: dops.decode_attention_ref(q, k, v, lens), library),
         **_bound(nbytes, flops, dtype))
 
 
@@ -189,6 +271,10 @@ def flash_case(torch, F, fops, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                               enable_gqa=Hq != Hkv)
 
+    def library_causal():   # SDPA's own causal path: the same function here
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=Hq != Hkv)
+
     if causal:   # visible (query, key) pairs
         pairs = sum(min(Sk, max(0, q_offset + i + 1)) for i in range(Sq))
     else:
@@ -200,9 +286,10 @@ def flash_case(torch, F, fops, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
         shape=(f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} hd={hd} "
                f"causal={causal} q_offset={q_offset}"),
         dtype=dtype, max_abs_err=err,
-        ms=time_ms(torch, lambda: fops.flash_attention(q, k, v, **kw)),
-        plain_ms=time_ms(torch, lambda: fops.attention_ref(q, k, v, **kw)),
-        library_ms=time_ms(torch, library),
+        **_timings(torch, lambda: fops.flash_attention(q, k, v, **kw),
+                   lambda: fops.attention_ref(q, k, v, **kw), library),
+        library_causal_ms=(time_ms(torch, library_causal)[0]
+                           if causal and q_offset == 0 and Sq == Sk else None),
         **_bound(nbytes, flops, dtype))
 
 
@@ -229,10 +316,9 @@ def rwkv_case(torch, kops, N, S, hd, dtype, gen):
     flops = 4.0 * N * S * hd * hd      # read-out + update, one FMA each
     return dict(
         shape=f"N={N} S={S} hd={hd}", dtype=dtype, max_abs_err=err,
-        ms=time_ms(torch, lambda: kops.rwkv6_scan(*args)),
-        plain_ms=time_ms(torch, lambda: kops.rwkv6_scan_ref(*args), reps=5,
-                         inner=2),
-        library_ms=None, **_bound(nbytes, flops, "float32"))
+        **_timings(torch, lambda: kops.rwkv6_scan(*args),
+                   lambda: kops.rwkv6_scan_ref(*args), None, plain_reps=(5, 2)),
+        **_bound(nbytes, flops, "float32"))
 
 
 def ssm_case(torch, sops, Bz, S, di, ds, dtype, gen, h0_random=True):
@@ -268,10 +354,9 @@ def ssm_case(torch, sops, Bz, S, di, ds, dtype, gen, h0_random=True):
     return dict(
         shape=f"Bz={Bz} S={S} di={di} ds={ds} h0={'random' if h0_random else 0}",
         dtype=dtype, max_abs_err=err,
-        ms=time_ms(torch, lambda: sops.ssm_scan(*args)),
-        plain_ms=time_ms(torch, lambda: sops.ssm_scan_ref(*args), reps=5,
-                         inner=2),
-        library_ms=None, **_bound(nbytes, flops, "float32"))
+        **_timings(torch, lambda: sops.ssm_scan(*args),
+                   lambda: sops.ssm_scan_ref(*args), None, plain_reps=(5, 2)),
+        **_bound(nbytes, flops, "float32"))
 
 
 def _bound(nbytes: float, flops: float, dtype: str) -> dict:
@@ -283,11 +368,14 @@ def _bound(nbytes: float, flops: float, dtype: str) -> dict:
 
 def _print_row(name, row):
     lib = row["library_ms"]
-    lib = "none" if lib is None else f"{lib:.4f}"
+    lib = "none" if lib is None else f"{lib:.4f}/{row['library_wall_ms']:.4f}"
     print(f"  {name:17s} {row['dtype']:8s} {row['shape']:60s} "
           f"err={row['max_abs_err']:.2e} ms={row['ms']:.4f} "
-          f"plain_ms={row['plain_ms']:.4f} library_ms={lib} "
-          f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})", flush=True)
+          f"wall_ms={row['wall_ms']:.4f} plain_ms={row['plain_ms']:.4f}/"
+          f"{row['plain_wall_ms']:.4f} library_ms={lib} "
+          + (f"library_causal_ms={row['library_causal_ms']:.4f} "
+             if row.get("library_causal_ms") else "")
+          + f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -390,18 +478,28 @@ def phase_profile(torch, cfg, params, device, steps, api, slots=4,
     device_ms = sum(ms for ms, _ in kernels.values())
     launches = sum(c for _, c in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    # the port's own kernels: the __global__ functions of csrc/*.cu
+    port = {}
+    for name, value in kernels.items():
+        m = re.match(r"void \(anonymous namespace\)::(\w+)<", name)
+        if m and m[1] in PORT_KERNELS:
+            port[name] = value
     if device_ms > 0:
         print(f"decode step (B={slots}): {step_ms:.2f} ms host wall, "
               f"{device_ms:.3f} ms device kernel time, {launches:.0f} device "
               f"ops/step; device idle {1 - device_ms / step_ms:.1%}")
         for name, (ms, count) in top:
             print(f"  {ms:8.4f} ms/step {count:6.0f}x  {name[:90]}")
+        for name, (ms, count) in port.items():
+            print(f"  port kernel {name.split('::')[1][:60]}: {ms:.4f} ms/step, "
+                  f"{count:.0f} launches/step, {ms / count * 1e3:.2f} us each")
     else:
         print(f"decode step (B={slots}): {step_ms:.2f} ms host wall; device "
               "time not measured (the profiler recorded no device kernels)")
     return dict(step_ms=step_ms, device_ms=device_ms or None,
                 device_ops_per_step=launches,
-                top=[(name, ms, count) for name, (ms, count) in top])
+                top=[(name, ms, count) for name, (ms, count) in top],
+                port=[(name, ms, count) for name, (ms, count) in port.items()])
 
 
 def phase_ragged(torch, cfg, params, device, steps, api):
@@ -652,10 +750,18 @@ def main(argv=None) -> int:
     build_s = _build.build()
     print(f"built {_build.sources()} in {build_s:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for name, log in _build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    ptxas = {name: _ptxas_summary(log) for name, log in _build.build_log.items()}
+    for name, kernels_of in ptxas.items():
+        for kernel, info in kernels_of:
+            print(f"  {name}: {kernel}: {info}")
+    # the bf16 products run on the tensor cores: wgmma in K2, mma.sync in K1
+    sass = {}
+    for name, op in (("flash_attention", "HGMMA"), ("decode_attention", "HMMA")):
+        n_ops, n_wait, first = _tensor_core_ops(_build.target(name), op)
+        check(n_ops > 0, f"{name}: no {op} instruction in its SASS")
+        sass[name] = dict(op=op, count=n_ops, gsb0=n_wait, first=first)
+        print(f"  {name}: {n_ops} {op} instructions ({n_wait} with gsb0), "
+              f"e.g. `{first}`")
     card = gpu_name_and_power_limit()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
@@ -704,10 +810,19 @@ def main(argv=None) -> int:
     rows["decode_attention"].append(decode_case(
         torch, F, dops, 4, 64, 8, 512, 128, [17, 130, 256, 511], "bfloat16",
         gen))
-    for S in (256, 512):
+    # and its admissions: one prompt's causal prefill, at 256 and 512 tokens
+    # and at two of the served prompt lengths (ragged tiles)
+    for S in (256, 512, 221, 19):
         rows["flash_attention"].append(flash_case(
             torch, F, fops, 1, 64, 8, S, S, 128, True, 0, dtype="bfloat16",
             gen=gen))
+    # any GQA group: qwen2.5-14b's 40/8 heads (group 5) and
+    # mistral-large-123b's 96/8 (group 12), hd 128, ragged kv_len
+    for dtype in ("float32", "bfloat16"):
+        for Hq in (40, 96):
+            rows["decode_attention"].append(decode_case(
+                torch, F, dops, 4, Hq, 8, 512, 128, [17, 130, 256, 511],
+                dtype, gen))
     for name, rs in rows.items():
         for row in rs:
             _print_row(name, row)
@@ -844,13 +959,15 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source[name][0],
             "replaces": source[name][1], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "wall_ms": row["wall_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "dtype": row["dtype"]})
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
-            {"card": card, "build_s": build_s, "cases": rows,
+            {"card": card, "build_s": build_s, "ptxas": ptxas, "sass": sass,
+             "cases": rows,
              "kernels": kernel_rows, "serve": served, "profile": prof,
              "ragged_err": ragged_err, "prefill": pre,
              "serve_rwkv": served_r, "profile_rwkv": prof_r,

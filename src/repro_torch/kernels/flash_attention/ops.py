@@ -2,7 +2,9 @@
 version for CPU tensors.
 
 A CUDA tensor launches ``csrc/flash_attention.cu`` or raises; nothing routes
-it to the plain version.
+it to the plain version.  There, bf16 with a head_dim that is a multiple of 8
+runs on the tensor cores (wgmma, K/V by TMA); f32, and bf16 of another
+head_dim, on the CUDA cores, register-tiled.
 """
 from __future__ import annotations
 

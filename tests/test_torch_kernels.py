@@ -48,6 +48,9 @@ DECODE_CASES = [
     (2, 4, 2, 64, 16, 33),
     (1, 4, 4, 96, 32, 96),
     (3, 8, 1, 40, 16, 1),
+    (2, 6, 2, 40, 16, 17),       # group 3
+    (1, 10, 2, 48, 16, 30),      # group 5 (qwen2.5-14b's 40/8)
+    (1, 12, 1, 32, 16, 32),      # group 12 (mistral-large-123b's 96/8)
 ]
 
 
@@ -113,9 +116,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         dops.decode_attention(q, k.transpose(2, 3).contiguous().transpose(2, 3),
                               v, good)                       # not contiguous
-    with pytest.raises(ValueError):   # group 3 is not built
-        dops.decode_attention(torch.zeros(2, 6, 16), torch.zeros(2, 2, 8, 16),
-                              torch.zeros(2, 2, 8, 16), good)
+    # any group is taken, group 3 included (the kernel pads it to 4)
+    q3 = torch.randn(2, 6, 16, generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(
+        dops.decode_attention(q3, k, v, good),
+        dops.decode_attention_ref(q3, k, v, good), rtol=0, atol=0)
     with pytest.raises(ValueError):   # no kernel for this device
         dops.decode_attention(q.to("meta"), k.to("meta"), v.to("meta"),
                               good.to("meta"))
@@ -126,6 +131,44 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         fops.flash_attention(torch.zeros(1, 2, 4, 16, device="meta"),
                              torch.zeros(1, 2, 4, 16, device="meta"),
                              torch.zeros(1, 2, 4, 16, device="meta"))
+
+
+SM_COUNT = 132   # an H100 SXM's SMs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hkv,group,S,hd,main", [
+    (4, 16, 1, 512, 64, True),      # qwen1.5-0.5b decode step
+    (4, 8, 8, 512, 128, True),      # jamba decode step
+    (4, 8, 4, 1024, 128, True),     # minitron's heads
+    (4, 8, 5, 512, 128, True),      # qwen2.5-14b's heads
+    (4, 8, 12, 512, 128, True),     # mistral-large-123b's heads
+    (8, 16, 1, 1024, 64, False),
+    (1, 1, 1, 1, 16, False),
+    (3, 2, 3, 40, 16, False),
+    (1, 4, 1, 300, 128, False),
+    (64, 32, 1, 4096, 64, False),   # already more blocks than two waves
+])
+def test_num_splits_cover_the_cache_and_fill_the_card(B, Hkv, group, S, hd,
+                                                      main, dtype):
+    """Each (row, KV head) takes at least one chunk, the chunks are whole key
+    tiles of the kernel and cover S with none wholly past it; the main
+    shapes' grids fill the 132 SMs about twice, as far as their tiles allow,
+    except group 1, whose blocks take up to MHA_TILES tiles unsplit."""
+    tile = dops._key_tile(group, hd, dtype)
+    n = dops._num_splits(B, Hkv, group, S, SM_COUNT, tile)
+    chunk = dops._chunk(S, tile, n)
+    assert n >= 1 and chunk % tile == 0 and tile % 32 == 0
+    assert n * chunk >= S and (n - 1) * chunk < S
+    groups = B * Hkv * -(-group // 16)
+    blocks = groups * n
+    if group == 1:
+        assert n == -(-S // (tile * dops.MHA_TILES))
+    elif main:
+        assert min(1.5 * SM_COUNT, groups * -(-S // tile)) <= blocks
+        assert blocks <= 3 * SM_COUNT
+    elif groups >= dops.WAVES * SM_COUNT:
+        assert n == 1
 
 
 def test_import_builds_nothing_and_missing_nvcc_raises(monkeypatch, tmp_path):
