@@ -12,7 +12,9 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    version and, where there is one, a PyTorch library call that computes
    the same function: device time (each timed batch waits behind
    ``torch.cuda._sleep`` until the host has enqueued it) and, as ``wall_ms``,
-   the time through the wrapper;
+   the time through the wrapper; the WKV scan also at many chunks (S up to
+   4096), a ragged last chunk and both decay extremes, the selective scan
+   at a 2048-token prompt and in place at the decode step;
 3. serve 8 requests with the port's ``BatchedServer`` on qwen1.5-0.5b at
    full width (24 layers, d_model 1024, vocab 151,936, f32, random weights
    from a seed): every decode step must go through the decode kernel;
@@ -147,6 +149,33 @@ def _timings(torch, kernel, plain, library, plain_reps=(7, 10)) -> dict:
     lib_ms, lib_wall = time_ms(torch, library) if library else (None, None)
     return dict(ms=ms, wall_ms=wall, plain_ms=plain_ms, plain_wall_ms=plain_wall,
                 library_ms=lib_ms, library_wall_ms=lib_wall)
+
+
+def launch_us(torch, fn, n: int = 20) -> dict:
+    """Device µs per launch of each CUDA kernel that ``fn`` launches (by
+    name and template arguments), by torch.profiler over ``n`` calls after
+    warm-up, averaged over the launches it recorded."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {key.split("::")[-1].split("(")[0]: us / count
+            for key, (us, count) in device_kernels(prof).items()}
+
+
+def device_kernels(prof) -> dict:
+    """{kernel: (device µs, launches)} of each CUDA kernel that a
+    torch.profiler run recorded with device time."""
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us > 0 and e.device_type.name == "CUDA":
+            out[e.key] = (us, e.count)
+    return out
 
 
 def _ptxas_summary(log: str) -> list:
@@ -293,39 +322,79 @@ def flash_case(torch, F, fops, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
         **_bound(nbytes, flops, dtype))
 
 
-def rwkv_case(torch, kops, N, S, hd, dtype, gen):
+def _wkv_f64(torch, r, k, v, logw, u, state0):
+    """The plain version's sequential recurrence evaluated in f64: the
+    yardstick where the f32 plain version's own rounding is what the
+    comparison would read (a state that grows without decay)."""
+    rf, kf, vf = (t.double() for t in (r, k, v))
+    wf, uf, s = logw.double().exp(), u.double()[:, :, None], state0.double()
+    ys = []
+    for t in range(r.shape[1]):
+        kv = kf[:, t, :, None] * vf[:, t, None, :]
+        ys.append(torch.einsum("nk,nkv->nv", rf[:, t], s + uf * kv))
+        s = wf[:, t, :, None] * s + kv
+    return torch.stack(ys, dim=1), s
+
+
+def rwkv_case(torch, kops, N, S, hd, dtype, gen, logw_value=None, f64=False,
+              profile=False):
     """One WKV-scan check + timings, inputs drawn as in
-    tests/test_kernels.py.  No single PyTorch call computes WKV6."""
+    tests/test_kernels.py, or with logw = ``logw_value`` at every step.
+    Held to the plain version, or with ``f64`` to the same recurrence in
+    f64 (the f32 plain version's distance from it is reported as
+    ``plain_err``); ``profile``: each of its launches timed by the profiler
+    (``launch_us``).  No single PyTorch call computes WKV6."""
     dt = getattr(torch, dtype)
     r, k, v = (torch.randn(N, S, hd, device="cuda", generator=gen).to(dt)
                for _ in range(3))
     z = torch.randn(N, S, hd, device="cuda", generator=gen)
-    logw = torch.clamp(-torch.exp(0.5 * z - 1), -8.0, -1e-6)
+    logw = torch.clamp(-torch.exp(0.5 * z - 1), -8.0, -1e-6) \
+        if logw_value is None else torch.full_like(z, logw_value)
     u = 0.1 * torch.randn(N, hd, device="cuda", generator=gen)
     s0 = 0.1 * torch.randn(N, hd, hd, device="cuda", generator=gen)
     args = (r, k, v, logw, u, s0)
     out, state = kops.rwkv6_scan(*args)
     torch.cuda.synchronize()
     want_out, want_state = kops.rwkv6_scan_ref(*args)
+    extra = {}
+    if f64:
+        exact_out, exact_state = _wkv_f64(torch, *args)
+        extra = dict(plain_err=max(
+            (want_out - exact_out).abs().max().item(),
+            (want_state - exact_state).abs().max().item()),
+            err_vs_plain=max((out - want_out).abs().max().item(),
+                             (state - want_state).abs().max().item()))
+        want_out, want_state = exact_out, exact_state
     err = max(_within(torch, out, want_out, K4_TOL),
               _within(torch, state, want_state, K4_TOL))
+    if profile:
+        extra["launch_us"] = launch_us(
+            torch, lambda: kops.rwkv6_scan(*args))
     # r, k, v read once in their dtype, logw once in f32, y written once in
     # f32, the state read and written once, u read once
     nbytes = ((3 * r.element_size() + 4) * N * S * hd + 4 * N * S * hd
               + 8 * N * hd * hd + 4 * N * hd)
     flops = 4.0 * N * S * hd * hd      # read-out + update, one FMA each
+    shape = f"N={N} S={S} hd={hd}" \
+        + (f" logw={logw_value:g}" if logw_value is not None else "") \
+        + (" (vs f64)" if f64 else "")
     return dict(
-        shape=f"N={N} S={S} hd={hd}", dtype=dtype, max_abs_err=err,
+        shape=shape, dtype=dtype, max_abs_err=err, **extra,
         **_timings(torch, lambda: kops.rwkv6_scan(*args),
                    lambda: kops.rwkv6_scan_ref(*args), None, plain_reps=(5, 2)),
         **_bound(nbytes, flops, "float32"))
 
 
-def ssm_case(torch, sops, Bz, S, di, ds, dtype, gen, h0_random=True):
+def ssm_case(torch, sops, Bz, S, di, ds, dtype, gen, h0_random=True,
+             in_place=False, profile=False):
     """One selective-scan check + timings: u, B, C in ``dtype`` and dt in
     f32 as ``apply_ssm`` passes them, A_log the S4D-real init, dt = softplus
     (N(0,1) - 1) as in tests/test_kernels.py; h0 random, or zeros as at a
-    prefill.  No single PyTorch call computes a selective scan."""
+    prefill.  ``in_place``: the state is written into h0 (``h_out=h0``, as
+    the Mamba decode step calls it), which must give the out-of-place
+    result to the bit; that call is the one timed.  ``profile``: its launch
+    timed by the profiler (``launch_us``).  No single PyTorch call computes
+    a selective scan."""
     dt_ = getattr(torch, dtype)
     u = torch.randn(Bz, S, di, device="cuda", generator=gen).to(dt_)
     dt = torch.nn.functional.softplus(
@@ -343,6 +412,15 @@ def ssm_case(torch, sops, Bz, S, di, ds, dtype, gen, h0_random=True):
     want_y, want_h = sops.ssm_scan_ref(*args)
     err = max(_within(torch, y, want_y, K3_TOL),
               _within(torch, h, want_h, K3_TOL))
+    kernel = functools.partial(sops.ssm_scan, *args)
+    if in_place:
+        state = h0.clone()
+        y2, h2 = sops.ssm_scan(*args[:6], state, h_out=state)
+        torch.cuda.synchronize()
+        check(h2 is state and torch.equal(y2, y) and torch.equal(state, h),
+              "ssm_scan with h_out=h0 differs from the out-of-place call")
+        kernel = functools.partial(sops.ssm_scan, *args[:6], state, h_out=state)
+    extra = {"launch_us": launch_us(torch, kernel)} if profile else {}
     n = Bz * S * di
     # u once in its dtype, dt once in f32, y written once in f32; B, C once;
     # A_log and D once; the state read and written once
@@ -352,9 +430,10 @@ def ssm_case(torch, sops, Bz, S, di, ds, dtype, gen, h0_random=True):
     # read-out (2); per channel and step: dt * u, u * D + y (2)
     flops = 7.0 * n * ds + 3.0 * n
     return dict(
-        shape=f"Bz={Bz} S={S} di={di} ds={ds} h0={'random' if h0_random else 0}",
-        dtype=dtype, max_abs_err=err,
-        **_timings(torch, lambda: sops.ssm_scan(*args),
+        shape=f"Bz={Bz} S={S} di={di} ds={ds} h0={'random' if h0_random else 0}"
+        + (" h_out=h0" if in_place else ""),
+        dtype=dtype, max_abs_err=err, **extra,
+        **_timings(torch, kernel,
                    lambda: sops.ssm_scan_ref(*args), None, plain_reps=(5, 2)),
         **_bound(nbytes, flops, "float32"))
 
@@ -375,6 +454,11 @@ def _print_row(name, row):
           f"{row['plain_wall_ms']:.4f} library_ms={lib} "
           + (f"library_causal_ms={row['library_causal_ms']:.4f} "
              if row.get("library_causal_ms") else "")
+          + (f"err_vs_plain={row['err_vs_plain']:.2e} plain_err="
+             f"{row['plain_err']:.2e} " if "plain_err" in row else "")
+          + ("launch_us=" + ",".join(f"{k}:{v:.2f}" for k, v in
+                                     row["launch_us"].items()) + " "
+             if "launch_us" in row else "")
           + f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})", flush=True)
 
 
@@ -470,11 +554,8 @@ def phase_profile(torch, cfg, params, device, steps, api, slots=4,
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and e.device_type.name == "CUDA":
-            kernels[e.key] = (us / n / 1e3, e.count / n)
+    kernels = {key: (us / n / 1e3, count / n)
+               for key, (us, count) in device_kernels(prof).items()}
     device_ms = sum(ms for ms, _ in kernels.values())
     launches = sum(c for _, c in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
@@ -788,23 +869,42 @@ def main(argv=None) -> int:
             rows["flash_attention"].append(
                 flash_case(torch, F, fops, *case, dtype=dtype, gen=gen))
         # rwkv6-1.6b: one prompt's 32 heads of 64 over 16-256 tokens, four
-        # prompts at once, and two odd shapes (ragged key rows and columns)
+        # prompts at once, two odd shapes (ragged key rows and columns), a
+        # ragged last chunk at full width and many chunks
+        # (hd 30: rows that 16-byte loads and stores cannot take)
         for N, S, hd in ((32, 16, 64), (32, 131, 64), (32, 256, 64),
-                         (128, 256, 64), (6, 33, 16), (4, 100, 128)):
-            rows["rwkv6_scan"].append(
-                rwkv_case(torch, kops, N, S, hd, dtype, gen))
-        # tests/test_kernels.py's selective-scan shapes
+                         (128, 256, 64), (6, 33, 16), (4, 100, 128),
+                         (32, 33, 64), (32, 1024, 64), (32, 4096, 64),
+                         (3, 45, 30)):
+            rows["rwkv6_scan"].append(rwkv_case(
+                torch, kops, N, S, hd, dtype, gen,
+                profile=S == 256 and dtype == "float32"))
+        # the decay extremes: logw = -8 at every step (the largest in-chunk
+        # decay, where a factored exponent overflows f32), and -1e-6 (no
+        # decay: the state grows, and the f32 plain version's own rounding
+        # passes 1e-3, so that case is held to the f64 recurrence)
+        rows["rwkv6_scan"].append(rwkv_case(torch, kops, 32, 256, 64, dtype,
+                                            gen, logw_value=-8.0))
+        rows["rwkv6_scan"].append(rwkv_case(torch, kops, 32, 256, 64, dtype,
+                                            gen, logw_value=-1e-6, f64=True))
+        # tests/test_kernels.py's selective-scan shapes, and two whose u / dt
+        # rows cannot be copied 16 bytes at a time (di 100 and 50)
         for Bz, S, di, ds in ((2, 64, 128, 16), (1, 100, 64, 8),
-                              (2, 37, 256, 16)):
+                              (2, 37, 256, 16), (2, 37, 100, 16),
+                              (1, 50, 50, 8)):
             rows["ssm_scan"].append(
                 ssm_case(torch, sops, Bz, S, di, ds, dtype, gen))
-    # jamba CARD: one prompt's prefill (h0 = 0) at 16-256 tokens and the
-    # decode step of 4 slots from their states, u/B/C bf16 and dt f32
-    for S in (16, 131, 256):
-        rows["ssm_scan"].append(ssm_case(torch, sops, 1, S, 16384, 16,
-                                         "bfloat16", gen, h0_random=False))
-    rows["ssm_scan"].append(ssm_case(torch, sops, 4, 1, 16384, 16,
-                                     "bfloat16", gen))
+    # jamba CARD, u/B/C bf16 and dt f32: one prompt's prefill (h0 = 0) at
+    # 16-256 tokens and at 2048, and the decode step of 4 slots from their
+    # states, out of place and in place (h_out=h0, as the model calls it)
+    jamba_ssm = {S: ssm_case(torch, sops, 1, S, 16384, 16, "bfloat16", gen,
+                             h0_random=False, profile=S == 256)
+                 for S in (16, 131, 256, 2048)}
+    jamba_ssm["decode"] = ssm_case(torch, sops, 4, 1, 16384, 16, "bfloat16",
+                                   gen, profile=True)
+    jamba_ssm["decode in place"] = ssm_case(
+        torch, sops, 4, 1, 16384, 16, "bfloat16", gen, in_place=True)
+    rows["ssm_scan"] += jamba_ssm.values()
     # jamba's attention: GQA group 8, hd 128, bf16; the decode step of 4
     # slots and one prompt's causal prefill
     rows["decode_attention"].append(decode_case(
@@ -831,8 +931,8 @@ def main(argv=None) -> int:
         "decode_attention": decode_case(torch, F, dops, 4, 16, 16, 512, 64,
                                         [17, 130, 256, 511], "float32", gen),
         "flash_attention": rows["flash_attention"][1],
-        "ssm_scan": rows["ssm_scan"][-2],          # Bz=1 S=256 prefill
-        "rwkv6_scan": rows["rwkv6_scan"][2],
+        "ssm_scan": jamba_ssm[256],                 # Bz=1 S=256 prefill
+        "rwkv6_scan": rows["rwkv6_scan"][2],        # f32 N=32 S=256
     }
     _print_row("decode (main)", main_rows["decode_attention"])
 

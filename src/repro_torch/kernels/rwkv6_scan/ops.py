@@ -3,8 +3,12 @@ for CPU tensors.
 
 A CUDA tensor launches ``csrc/rwkv6_scan.cu`` or raises; nothing routes it
 to the plain version.  The interface is the Pallas kernel's
-(``rwkv6_scan(r, k, v, logw, u, state0)``) without its ``chunk``: chunking is
-how the TPU kernel computes the recurrence, not part of the function.
+(``rwkv6_scan(r, k, v, logw, u, state0)``) without its ``chunk``: chunking
+is how a kernel computes the recurrence, not part of the function.  The
+Hopper kernel, like the TPU kernel's default, takes chunks of ``CHUNK`` = 32
+steps.  A call on the card is three launches (each chunk's own state
+contribution, the pass over each row's chunks, each chunk's output);
+``launches`` counts calls.
 """
 from __future__ import annotations
 
@@ -20,9 +24,27 @@ from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 launches = 0
 
 MAX_HEAD_DIM = 128
+CHUNK = 32                        # steps a chunk of the kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 10 + [_I, _I, _I, _I, _P]
+
+
+def num_chunks(S: int) -> int:
+    """Chunks of ``CHUNK`` steps that cover S (the last one may be ragged)."""
+    return -(-S // CHUNK)
+
+
+def padded_head_dim(hd: int) -> int:
+    """The head dim the kernel is built for: 64 up to 64, else 128."""
+    return 64 if hd <= 64 else 128
+
+
+def scratch_shapes(N: int, S: int, hd: int) -> tuple:
+    """Shapes of the kernel's f32 scratch: each chunk's state (its own
+    contribution, then the state entering it) and its log2 decay."""
+    nc, hdp = num_chunks(S), padded_head_dim(hd)
+    return (N, nc, hdp, hdp), (N, nc, hdp)
 
 
 def _check(r, k, v, logw, u, state0) -> None:
@@ -68,9 +90,13 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fn = _build.function("rwkv6_scan", _ARGTYPES)
     out = torch.empty((N, S, hd), dtype=torch.float32, device=r.device)
     state = torch.empty_like(state0)
+    states_shape, wlast_shape = scratch_shapes(N, S, hd)
+    states = torch.empty(states_shape, dtype=torch.float32, device=r.device)
+    wlast = torch.empty(wlast_shape, dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
              u.data_ptr(), state0.data_ptr(), out.data_ptr(), state.data_ptr(),
+             states.data_ptr(), wlast.data_ptr(),
              N, S, hd, _DTYPES[r.dtype], stream)
     _build.check("rwkv6_scan", err)
     launches += 1

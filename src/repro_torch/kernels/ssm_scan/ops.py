@@ -5,7 +5,10 @@ A CUDA tensor launches ``csrc/ssm_scan.cu`` or raises; nothing routes it to
 the plain version.  The interface is the Pallas kernel's
 (``ssm_scan(u, dt, A, B, C, D, h0)``, applying ``-exp(A)`` itself) without
 its ``chunk`` and ``block_di``: chunking is how the TPU kernel computes the
-recurrence, not part of the function.
+recurrence, not part of the function.  One keyword is added: ``h_out``, a
+tensor to write the final state into, which may be ``h0`` itself (the
+Mamba decode step updates its cached state in place).  A call is one
+launch: ``ssm_step_kernel`` for one step (S = 1), ``ssm_kernel`` otherwise.
 """
 from __future__ import annotations
 
@@ -61,27 +64,52 @@ def _check(u, dt, A_log, B, C, D, h0) -> None:
         raise ValueError("ssm_scan: tensors must be contiguous")
 
 
+def _check_h_out(h_out, h0) -> None:
+    if h_out.shape != h0.shape or h_out.dtype != torch.float32 \
+            or h_out.device != h0.device or not h_out.is_contiguous():
+        raise ValueError("ssm_scan: h_out must be a contiguous float32 tensor "
+                         f"of h0's shape {tuple(h0.shape)} on {h0.device}; got "
+                         f"{h_out.dtype} {tuple(h_out.shape)} on {h_out.device}")
+    if h_out.data_ptr() != h0.data_ptr() and _overlap(h_out, h0):
+        raise ValueError("ssm_scan: h_out overlaps h0 without being h0")
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and \
+        b0 < a0 + a.numel() * a.element_size()
+
+
 def ssm_scan(u: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
-             h0: torch.Tensor):
+             h0: torch.Tensor, *, h_out: torch.Tensor = None):
     """The Mamba selective scan over Bz rows of di channels.
 
     u: (Bz, S, di) and B, C: (Bz, S, ds), float32 or bfloat16 (one dtype);
     dt: (Bz, S, di) float32 step sizes; A_log: (di, ds) float32 (the op
     applies ``-exp``); D: (di,) float32; h0: (Bz, di, ds) float32.
-    Returns (y (Bz, S, di) f32, h (Bz, di, ds) f32).
+    h_out: where the final state goes (h0's shape, float32, contiguous; it
+    may be h0 itself); a new tensor when None.
+    Returns (y (Bz, S, di) f32, h (Bz, di, ds) f32), h being h_out if given.
     """
     global launches
     _check(u, dt, A_log, B, C, D, h0)
+    if h_out is not None:
+        _check_h_out(h_out, h0)
     if u.device.type == "cpu":
-        return ssm_scan_ref(u, dt, A_log, B, C, D, h0)
+        y, h = ssm_scan_ref(u, dt, A_log, B, C, D, h0)
+        return y, h if h_out is None else h_out.copy_(h)
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan: no kernel for {u.device}")
     Bz, S, di = u.shape
     ds = A_log.shape[1]
-    fn = _build.function("ssm_scan", _ARGTYPES)
     y = torch.empty((Bz, S, di), dtype=torch.float32, device=u.device)
-    h = torch.empty_like(h0)
+    h = torch.empty_like(h0) if h_out is None else h_out
+    if any(t.data_ptr() % 16 for t in (A_log, h0, h)):
+        raise ValueError("ssm_scan: the kernel reads A_log and h0 and writes "
+                         "h_out 16 bytes at a time; they must be 16-byte "
+                         "aligned")
+    fn = _build.function("ssm_scan", _ARGTYPES)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = fn(u.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
              C.data_ptr(), D.data_ptr(), h0.data_ptr(), y.data_ptr(),

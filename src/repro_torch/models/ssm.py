@@ -124,15 +124,16 @@ def apply_ssm(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
     else:
         h0 = torch.zeros((B, di, s.d_state), dtype=torch.float32,
                          device=x.device)
+    # decode updates the cached state in place (h_out = h0)
     y, h_fin = ssm_scan(u_act.contiguous(), dt_full.contiguous(),
                         p["A_log"].float().contiguous(), Bmat, Cmat,
-                        p["D"].float().contiguous(), h0)
+                        p["D"].float().contiguous(), h0,
+                        h_out=h0 if mode == "decode" else None)
     y = (y * F.silu(z.float())).to(cd)
     out = L.linear(p["out_proj"], y, cd)
 
     if mode == "decode":
         cache["conv"].copy_(new_conv)
-        cache["state"].copy_(h_fin)
         return out, {"conv": cache["conv"], "state": cache["state"]}
     if mode == "prefill":
         return out, {"conv": new_conv, "state": h_fin}

@@ -129,3 +129,60 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):                       # not contiguous
         ops.rwkv6_scan(r.transpose(1, 2).contiguous().transpose(1, 2), k, v,
                        logw, u, s0)
+
+
+# the decay extremes: logw = -8 (the largest in-chunk decay, where a
+# factored exponent overflows f32) and -1e-6 (no decay, a growing state),
+# at an S that is not a multiple of the chunk
+EXTREMES = [(lw, dtype) for lw in (-8.0, -1e-6) for dtype in DTYPES]
+EXTREME_IDS = [f"logw{lw:g}-{d}" for lw, d in EXTREMES]
+
+
+def _extreme_inputs(logw_value, dtype, N=2, S=70, hd=32, seed=4):
+    pairs = _inputs(N, S, hd, dtype, seed=seed)
+    logw = np.full((N, S, hd), logw_value, np.float32)
+    pairs[3] = (jnp.asarray(logw), torch.from_numpy(logw))
+    return pairs
+
+
+@pytest.mark.parametrize("logw_value,dtype", EXTREMES, ids=EXTREME_IDS)
+def test_plain_matches_jax_at_decay_extremes(logw_value, dtype):
+    """The plain version against the JAX sequential reference and the
+    Pallas kernel's chunked form in interpret mode (atol 1e-3), finite
+    everywhere.  Against the sequential reference the two f32 sums of each
+    read-out differ by a few units in the last place of their largest
+    partial sums, not of the (possibly small) result: with no decay those
+    reach |y|max ~ 60 here, so the bound is 1e-5 + 2e-6 * |y|max."""
+    pairs = _extreme_inputs(logw_value, dtype)
+    out, state = ops.rwkv6_scan(*(t for _, t in pairs))
+    assert torch.isfinite(out).all() and torch.isfinite(state).all()
+    want_out, want_state = _jax_ref(*(j for j, _ in pairs))
+    for want, got in ((want_out, out), (want_state, state)):
+        _close(want, got, 1e-5 + 2e-6 * float(np.abs(np.asarray(want)).max()))
+    p_out, p_state = pallas_scan(*(j for j, _ in pairs), interpret=True)
+    _close(p_out, out, 1e-3)
+    _close(p_state, state, 1e-3)
+
+
+@pytest.mark.parametrize("S,nc", [(1, 1), (32, 1), (33, 2), (131, 5),
+                                  (256, 8), (4096, 128)])
+def test_num_chunks_covers_S(S, nc):
+    assert ops.num_chunks(S) == nc
+    assert (nc - 1) * ops.CHUNK < S <= nc * ops.CHUNK
+
+
+@pytest.mark.parametrize("hd,hdp", [(1, 64), (16, 64), (64, 64), (65, 128),
+                                    (100, 128), (128, 128)])
+def test_padded_head_dim(hd, hdp):
+    assert ops.padded_head_dim(hd) == hdp
+
+
+@pytest.mark.parametrize("N,S,hd,want", [
+    (32, 256, 64, ((32, 8, 64, 64), (32, 8, 64))),
+    (6, 33, 16, ((6, 2, 64, 64), (6, 2, 64))),
+    (4, 100, 128, ((4, 4, 128, 128), (4, 4, 128))),
+    (3, 45, 30, ((3, 2, 64, 64), (3, 2, 64))),
+])
+def test_scratch_shapes(N, S, hd, want):
+    assert ops.scratch_shapes(N, S, hd) == want
+

@@ -157,3 +157,24 @@ def test_init_and_cache_spec_match_jax(param_dtype):
     for k in ("conv", "state"):
         assert tuple(jspec[k].shape) == tspec[k].shape
         assert tspec[k].dtype == torch.float32
+
+
+def test_decode_steps_update_the_state_in_place_as_jax(mixer):
+    """Three decode steps: the op writes the cached state in place (the same
+    tensor, no copy), and every step's output and cache equal the JAX
+    twin's."""
+    cfg = mixer.jcfg
+    step = jax.jit(lambda p, x, c: JS.apply_ssm(p, x, cfg, mode="decode",
+                                                cache=c))
+    jcache = {k: jnp.asarray(v) for k, v in mixer.cache.items()}
+    tcache = {k: torch.from_numpy(v.copy()) for k, v in mixer.cache.items()}
+    state = tcache["state"]
+    for t in range(3):
+        x = mixer.x[:, t:t + 1]
+        jy, jcache = step(mixer.jp, jnp.asarray(x), jcache)
+        ty, tc = TS.apply_ssm(mixer.tp, torch.from_numpy(x), mixer.tcfg,
+                              mode="decode", cache=tcache)
+        assert tc["state"] is state
+        _close(jy, ty)
+        for k in jcache:
+            _close(jcache[k], tc[k])

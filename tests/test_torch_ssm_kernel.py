@@ -135,3 +135,54 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):                       # not contiguous
         ops.ssm_scan(u.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
                      B, C, D, h0)
+
+
+INPLACE = [(shape, dtype) for shape in ((3, 1, 64, 16), (2, 37, 256, 16),
+                                        (1, 100, 64, 8)) for dtype in DTYPES]
+INPLACE_IDS = [f"{'x'.join(map(str, s))}-{d}" for s, d in INPLACE]
+
+
+@pytest.mark.parametrize("shape,dtype", INPLACE, ids=INPLACE_IDS)
+def test_h_out_in_place_equals_out_of_place_and_jax(shape, dtype):
+    """h_out = h0: the state is updated in place, the same values as the
+    out-of-place call, within the reference's tolerance of the JAX ref."""
+    pairs = _inputs(*shape, dtype, seed=5)
+    args = [t for _, t in pairs]
+    y, h = ops.ssm_scan(*args)
+    h0 = args[6].clone()
+    y2, h2 = ops.ssm_scan(*args[:6], h0, h_out=h0)
+    assert h2 is h0
+    torch.testing.assert_close(y2, y, rtol=0, atol=0)
+    torch.testing.assert_close(h0, h, rtol=0, atol=0)
+    want_y, want_h = _jax_ref(*(j for j, _ in pairs))
+    _close(want_y, y2)
+    _close(want_h, h0)
+
+
+def test_h_out_of_its_own_is_written_and_h0_kept():
+    args = [t for _, t in _inputs(2, 9, 16, 8, "float32", seed=6)]
+    h0 = args[6].clone()
+    out = torch.full_like(h0, float("nan"))
+    y, h = ops.ssm_scan(*args[:6], h0, h_out=out)
+    assert h is out
+    torch.testing.assert_close(h0, args[6], rtol=0, atol=0)
+    want_y, want_h = ops.ssm_scan(*args)
+    torch.testing.assert_close(y, want_y, rtol=0, atol=0)
+    torch.testing.assert_close(out, want_h, rtol=0, atol=0)
+
+
+def test_wrapper_rejects_a_wrong_h_out():
+    args = [t for _, t in _inputs(2, 5, 8, 8, "float32")]
+    h0 = args[6]
+    bad = {"shape": torch.zeros(2, 8, 16),
+           "dtype": torch.zeros_like(h0, dtype=torch.bfloat16),
+           "device": torch.zeros_like(h0, device="meta"),
+           "strides": torch.zeros(2, 8, 8).transpose(1, 2),
+           "overlap": torch.zeros(2 * 8 * 8 + 8)[8:].view(2, 8, 8)}
+    base = bad["overlap"]._base
+    base[:2 * 8 * 8].copy_(h0.reshape(-1))
+    overlap_args = args[:6] + [base[:2 * 8 * 8].view(2, 8, 8)]
+    for what, h_out in bad.items():
+        call = overlap_args if what == "overlap" else args
+        with pytest.raises(ValueError, match="h_out"):
+            ops.ssm_scan(*call, h_out=h_out)
