@@ -14,7 +14,11 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    ``torch.cuda._sleep`` until the host has enqueued it) and, as ``wall_ms``,
    the time through the wrapper; the WKV scan also at many chunks (S up to
    4096), a ragged last chunk and both decay extremes, the selective scan
-   at a 2048-token prompt and in place at the decode step;
+   at a 2048-token prompt and in place at the decode step; the flash-
+   attention backward (fed the forward kernel's output and row log-sum-
+   exps) against the plain backward and against autograd over the plain
+   forward, at qwen's training shape in f32 and bf16, a GQA group of 2 at
+   hd 128 and a query offset;
 3. serve 8 requests with the port's ``BatchedServer`` on qwen1.5-0.5b at
    full width (24 layers, d_model 1024, vocab 151,936, f32, random weights
    from a seed): every decode step must go through the decode kernel;
@@ -23,6 +27,14 @@ Phases, in order; any failed check ends the run with a non-zero exit:
 5. prefill 4 prompts of 256 tokens through the flash-attention kernel and
    check the last logits and the cache against the decode path fed the
    same prompts;
+   then train: (a) one train step of qwen1.5-0.5b cut to 2 layers at full
+   width on the card and on the CPU from the same params and batch (loss,
+   grad norm, params after the step), and the same step under remat "dots"
+   and "full"; (b) qwen1.5-0.5b at full width and depth in f32, batch 4 x
+   512, 30 steps through ``launch/train.py``'s ``main`` with a checkpoint:
+   the loss must fall, every step runs the flash-attention kernel and its
+   backward once per layer, one step is profiled; (c) under grad mode, the
+   forward-only kernels (the WKV and selective scans, flash-decode) raise;
 6. serve the same traffic on rwkv6-1.6b at full width (24 layers, d_model
    2048, vocab 65,536, f32, random weights from a seed): every admission
    prefills its prompt through the WKV scan kernel, once per layer;
@@ -54,6 +66,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -73,6 +86,10 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # tests/test_kernels.py's tolerances
 TOL = {"float32": dict(atol=3e-5, rtol=0.0),
        "bfloat16": dict(atol=3e-2, rtol=1e-2)}
+# the flash-attention backward: tests/test_kernels.py's atol with its rtol
+# of 1e-2 in f32 too (a gradient sums products over every visible key)
+BWD_TOL = {"float32": dict(atol=3e-5, rtol=1e-2),
+           "bfloat16": dict(atol=3e-2, rtol=1e-2)}
 # tests/test_kernels.py's tolerance for the WKV scan (out and state): all of
 # its arithmetic is f32 whatever the dtype of r, k, v
 K4_TOL = dict(atol=1e-3, rtol=0.0)
@@ -167,15 +184,34 @@ def launch_us(torch, fn, n: int = 20) -> dict:
             for key, (us, count) in device_kernels(prof).items()}
 
 
+# record_function ranges of this script: the profiler also lists each as a
+# device-side span, which is no kernel
+RANGES = ("adamw_update",)
+
+
 def device_kernels(prof) -> dict:
     """{kernel: (device µs, launches)} of each CUDA kernel that a
     torch.profiler run recorded with device time."""
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and e.device_type.name == "CUDA":
+        if us > 0 and e.device_type.name == "CUDA" and e.key not in RANGES:
             out[e.key] = (us, e.count)
     return out
+
+
+def range_kernels(prof, name: str):
+    """(device µs, launches) of the device work inside the device-side span
+    of record_function range ``name``, or None if the profiler kept no such
+    span."""
+    dev = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    span = [e.time_range for e in dev if e.name == name]
+    if not span:
+        return None
+    t0, t1 = span[0].start, span[0].end
+    inside = [e.time_range for e in dev if e.name not in RANGES
+              and t0 <= e.time_range.start and e.time_range.end <= t1]
+    return sum(r.end - r.start for r in inside), len(inside)
 
 
 def _ptxas_summary(log: str) -> list:
@@ -322,6 +358,74 @@ def flash_case(torch, F, fops, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
         **_bound(nbytes, flops, dtype))
 
 
+def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
+                   q_offset, dtype, gen):
+    """One check of the flash-attention backward kernel + timings.  The
+    forward kernel's row log-sum-exps are held to the plain version's; the
+    backward kernel, fed the forward kernel's output and lse, to the plain
+    backward fed the same, and to autograd over the plain forward; the
+    autograd path (``flash_attention`` under grad) must give the kernel's
+    gradients bit for bit."""
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(*shape, device="cuda", generator=gen).to(dt)
+                   for shape in ((B, Hq, Sq, hd), (B, Hkv, Sk, hd),
+                                 (B, Hkv, Sk, hd), (B, Hq, Sq, hd)))
+    kw = dict(causal=causal, q_offset=q_offset)
+    out, lse = fops.flash_attention_fwd(q, k, v, **kw)
+    got = bops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    lse_ref = fops.ref.attention_lse_ref(q, k, **kw)
+    lse_err = _within(torch, lse, lse_ref, TOL["float32"] if dtype ==
+                      "float32" else dict(atol=3e-2, rtol=0.0))
+    want = fops.ref.attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    err = max(_within(torch, g, w, BWD_TOL[dtype]) for g, w in zip(got, want))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(fops.ref.attention_ref(*leaves, **kw), leaves,
+                               do)
+    err_auto = max(_within(torch, g, w, BWD_TOL[dtype])
+                   for g, w in zip(got, auto))
+    path = torch.autograd.grad(fops.flash_attention(*leaves, **kw), leaves, do)
+    check(all(torch.equal(g, p) for g, p in zip(got, path)),
+          "the autograd path's gradients differ from the kernel's")
+
+    lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    if causal and q_offset == 0 and Sq == Sk:
+        lib_out = F.scaled_dot_product_attention(*lib_in, is_causal=True,
+                                                 enable_gqa=Hq != Hkv)
+    else:
+        q_pos = q_offset + torch.arange(Sq, device="cuda")
+        mask = q_pos[:, None] >= torch.arange(Sk, device="cuda")[None, :] \
+            if causal else None
+        lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=mask,
+                                                 enable_gqa=Hq != Hkv)
+
+    def library():   # SDPA's backward alone, on the same tensors
+        return torch.autograd.grad(lib_out, lib_in, do, retain_graph=True)
+
+    if causal:   # visible (query, key) pairs
+        pairs = sum(min(Sk, max(0, q_offset + i + 1)) for i in range(Sq))
+    else:
+        pairs = Sq * Sk
+    elem = q.element_size()
+    # read q, k, v, o, do and lse; write dq, dk, dv.  Five products: S and dP
+    # recomputed, dV, dQ, dK
+    nbytes = (4 * B * Hq * Sq * hd + 4 * B * Hkv * Sk * hd) * elem \
+        + 4 * B * Hq * Sq
+    flops = 10.0 * B * Hq * pairs * hd
+    return dict(
+        shape=(f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} hd={hd} "
+               f"causal={causal} q_offset={q_offset}"),
+        dtype=dtype, max_abs_err=err, err_vs_autograd=err_auto,
+        lse_err=lse_err,
+        **_timings(torch,
+                   lambda: bops.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+                   lambda: fops.ref.attention_bwd_ref(q, k, v, out, lse, do,
+                                                      **kw), library),
+        launch_us=launch_us(torch, lambda: bops.flash_attention_bwd(
+            q, k, v, out, lse, do, **kw)),
+        **_bound(nbytes, flops, dtype))
+
+
 def _wkv_f64(torch, r, k, v, logw, u, state0):
     """The plain version's sequential recurrence evaluated in f64: the
     yardstick where the f32 plain version's own rounding is what the
@@ -454,6 +558,8 @@ def _print_row(name, row):
           f"{row['plain_wall_ms']:.4f} library_ms={lib} "
           + (f"library_causal_ms={row['library_causal_ms']:.4f} "
              if row.get("library_causal_ms") else "")
+          + (f"err_vs_autograd={row['err_vs_autograd']:.2e} lse_err="
+             f"{row['lse_err']:.2e} " if "err_vs_autograd" in row else "")
           + (f"err_vs_plain={row['err_vs_plain']:.2e} plain_err="
              f"{row['plain_err']:.2e} " if "plain_err" in row else "")
           + ("launch_us=" + ",".join(f"{k}:{v:.2f}" for k, v in
@@ -795,6 +901,296 @@ def phase_server_solo(torch, np, cfg, params, device, serve, max_len=512,
     return err
 
 
+# ---------------------------------------------------------------------------
+# Training: qwen1.5-0.5b through K2 and its backward
+# ---------------------------------------------------------------------------
+
+
+def _to(torch, tree, device):
+    return {k: _to(torch, v, device) for k, v in tree.items()} \
+        if isinstance(tree, dict) else tree.to(device, copy=True)
+
+
+def _grads_of(adamw, state, b1):
+    """{path: gradient} that one AdamW step from zero moments saw: ``m`` is
+    then (1 - b1) times the clipped gradient."""
+    return {path: m / (1 - b1) for path, m in adamw.named_leaves(state["m"])}
+
+
+def _leaf_errs(got, want):
+    """{path: max |got - want| over max |want|} of two {path: tensor}."""
+    out = {}
+    for path, w in want.items():
+        scale = w.abs().max().item()
+        err = (got[path].cpu() - w.cpu()).abs().max().item()
+        out[path] = err / scale if scale > 0 else (0.0 if err == 0 else
+                                                    float("inf"))
+    return out
+
+
+def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
+                            OptimizerConfig, pipeline, batch=2, seq=256):
+    """One train step on the card and on the CPU from the same params and
+    batch (f32).  The gradient of every leaf (``m`` after one step from zero
+    moments is 0.1 times it) agrees to 2e-3 of the leaf's largest value
+    (tests/test_models.py's bound), and so do the loss and grad norm.  The
+    card's params after the step equal the CPU's AdamW applied to the card's
+    own gradient to 1e-6: comparing them with the CPU's step instead could
+    not fail, since Adam's first step moves each element by about lr
+    whatever its gradient's size.  Then the same step under remat "dots" and
+    "full" on the card gives every leaf's gradient to 1e-5."""
+    opt_cfg = OptimizerConfig(lr=3e-4, warmup_steps=5, total_steps=30)
+    cpu_params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    data = pipeline.SyntheticTokenPipeline(pipeline.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
+    tokens = torch.from_numpy(data.batch_at(0)["tokens"])
+    results = {}
+    for where in ("cuda", "cpu"):
+        dev = device if where == "cuda" else torch.device("cpu")
+        params = _to(torch, cpu_params, dev)
+        step = steps.make_train_step(cfg, opt_cfg, remat="none")
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, adamw.init_opt_state(
+            params, opt_cfg), {"tokens": tokens.to(dev)})
+        loss = float(metrics["loss"])
+        secs = time.perf_counter() - t0
+        results[where] = dict(params=params, loss=loss, s=secs,
+                              grads=_grads_of(adamw, state, opt_cfg.b1),
+                              grad_norm=float(metrics["grad_norm"]),
+                              lr=float(metrics["lr"]),
+                              launches=launches_of(kernels),
+                              plain_calls=sum(ops.ref.calls
+                                              for ops in kernels.values()))
+    gpu, cpu = results["cuda"], results["cpu"]
+    n = cfg.num_layers
+    check(gpu["launches"] == {name: (n if name.startswith("flash") else 0)
+                              for name in kernels}
+          and gpu["plain_calls"] == 0,
+          f"the card's train step launched {gpu['launches']}, want "
+          f"flash_attention and flash_attention_bwd {n} times each")
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    gn_rel = abs(gpu["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"]
+    grad_errs = _leaf_errs(gpu["grads"], cpu["grads"])
+    worst = max(grad_errs, key=grad_errs.get)
+    # the clipped gradients' norms in f64: where the f32 grad norms read the
+    # same, this shows how far apart the sums under them are
+    norm64 = {where: sum(g.double().square().sum().item() for g in
+                         results[where]["grads"].values()) ** 0.5
+              for where in results}
+    norm64_rel = abs(norm64["cuda"] - norm64["cpu"]) / norm64["cpu"]
+    # the CPU's AdamW on the card's gradient (clipped already: the second
+    # clip scales by 1 to within rounding) from the same params
+    ref = _to(torch, cpu_params, torch.device("cpu"))
+    adamw.adamw_update(ref, adamw.tree_like(ref, {
+        path: g.cpu() for path, g in gpu["grads"].items()}),
+        adamw.init_opt_state(ref, opt_cfg), opt_cfg)
+    p_err = max((a.cpu() - b).abs().max().item() for a, b in
+                zip(adamw.leaves(gpu["params"]), adamw.leaves(ref)))
+    print(f"one step, {cfg.num_layers} layers at full width, B={batch} "
+          f"S={seq}: loss card {gpu['loss']!r} / CPU {cpu['loss']!r} "
+          f"(rel {loss_rel:.2e}); grad norm {gpu['grad_norm']!r} / "
+          f"{cpu['grad_norm']!r} (rel {gn_rel:.2e}); clipped gradient's norm "
+          f"in f64 {norm64['cuda']!r} / {norm64['cpu']!r} (rel "
+          f"{norm64_rel:.2e}); gradient leaf by leaf, "
+          f"max |card - CPU| / max |CPU|: worst {worst} {grad_errs[worst]:.3e}"
+          f"; params after the step against the CPU's AdamW on the card's "
+          f"gradient: max |diff| {p_err:.3e}; card {gpu['s']:.2f} s (first "
+          f"call), CPU {cpu['s']:.2f} s", flush=True)
+    for path, err in sorted(grad_errs.items(), key=lambda kv: -kv[1]):
+        print(f"  grad {path}: {err:.3e} (max |g| "
+              f"{cpu['grads'][path].abs().max().item():.3e})")
+    check(loss_rel <= 2e-3 and gn_rel <= 2e-3 and grad_errs[worst] <= 2e-3,
+          "the card's gradient and the CPU's disagree")
+    check(p_err <= 1e-6, "the card's AdamW step and the CPU's disagree")
+    remat = {}
+    for mode in ("dots", "full"):
+        params = _to(torch, cpu_params, device)
+        step = steps.make_train_step(cfg, opt_cfg, remat=mode)
+        _, state, metrics = step(params, adamw.init_opt_state(
+            params, opt_cfg), {"tokens": tokens.to(device)})
+        errs = _leaf_errs(_grads_of(adamw, state, opt_cfg.b1), gpu["grads"])
+        remat[mode] = dict(loss=float(metrics["loss"]),
+                           grad_norm=float(metrics["grad_norm"]),
+                           grad_err=max(errs.values()))
+        print(f"  remat {mode!r} on the card: loss {remat[mode]['loss']!r}, "
+              f"grad norm {remat[mode]['grad_norm']!r}, worst leaf's "
+              f"gradient against 'none' {remat[mode]['grad_err']:.2e}")
+        check(remat[mode]["grad_err"] <= 1e-5,
+              f"remat {mode!r} changes the step")
+    return dict(loss=(gpu["loss"], cpu["loss"]), loss_rel=loss_rel,
+                grad_norm=(gpu["grad_norm"], cpu["grad_norm"]),
+                grad_norm_rel=gn_rel, grad_norm64=norm64,
+                grad_norm64_rel=norm64_rel, grad_errs=grad_errs,
+                adamw_err=p_err, card_s=gpu["s"], cpu_s=cpu["s"], remat=remat)
+
+
+def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
+                batch=4, seq=512, profile_at=10):
+    """``launch/train.py``'s own ``main`` on the card: ``n_steps`` steps of
+    the synthetic pipeline, checkpointing into a temporary directory.  Each
+    step is timed on the host clock, ending in a synchronise; one step is
+    profiled for its device kernel time, with its AdamW update in a range of
+    its own (its kernels' device time and count, and its span between two
+    CUDA events).  The loss must fall by tests/test_system.py's criterion,
+    and every step must run K2 and its backward once per layer and no other
+    kernel."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    times, prof_out, opt_span = [], {}, []
+    make, update = steps.make_train_step, adamw.adamw_update
+
+    def traced_update(*a, **kw):
+        if len(times) != profile_at:
+            return update(*a, **kw)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        with record_function("adamw_update"):
+            out = update(*a, **kw)
+        ev[1].record()
+        leaves = adamw.leaves(a[0])
+        opt_span.append((ev, len(leaves), sum(t.numel() for t in leaves)))
+        return out
+
+    def timed_factory(*a, **kw):
+        fn = make(*a, **kw)
+
+        def timed(params, opt_state, batch_):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(times) == profile_at:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = fn(params, opt_state, batch_)
+                    torch.cuda.synchronize()
+                prof_out["kernels"] = device_kernels(prof)
+                prof_out["adamw"] = range_kernels(prof, "adamw_update")
+            else:
+                out = fn(params, opt_state, batch_)
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    steps.make_train_step, adamw.adamw_update = timed_factory, traced_update
+    try:
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            losses = train.main(["--arch", "qwen1.5-0.5b", "--steps",
+                                 str(n_steps), "--batch", str(batch),
+                                 "--seq", str(seq), "--warmup", "5",
+                                 "--ckpt-dir", ckpt_dir, "--ckpt-every",
+                                 "1000", "--log-every", "10"])
+            wall = time.perf_counter() - t0
+            launches = launches_of(kernels)
+            saved = sorted(os.listdir(ckpt_dir))
+    finally:
+        steps.make_train_step, adamw.adamw_update = make, update
+    n = cfg.num_layers
+    want = {name: (n * n_steps if name.startswith("flash") else 0)
+            for name in kernels}
+    check(launches == want and all(ops.ref.calls == 0
+                                   for ops in kernels.values()),
+          f"training launched {launches}, want {want}")
+    check(len(losses) == n_steps and bool(np.isfinite(losses).all()),
+          f"losses {losses}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last5 < first5 - 0.05, f"the loss did not fall: first five "
+          f"{first5:.4f}, last five {last5:.4f}")
+    check(f"step_{n_steps:09d}" in saved, f"no checkpoint of the last step "
+          f"in {saved}")
+    steady = sorted(t for i, t in enumerate(times) if i not in (0, profile_at))
+    step_ms = steady[len(steady) // 2] * 1e3
+    kern = prof_out.get("kernels", {})
+    device_ms = sum(us for us, _ in kern.values()) / 1e3
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+    tok_s = batch * seq / (step_ms / 1e3)
+    print(f"trained {n_steps} steps of B={batch} x S={seq} in {wall:.1f} s "
+          f"(checkpoint included); loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(first five {first5:.4f}, last five {last5:.4f}); step "
+          f"{step_ms:.1f} ms median host wall (first {times[0] * 1e3:.1f} "
+          f"ms), {tok_s:.0f} tokens/s; K2 {launches['flash_attention'] / n_steps:.0f} "
+          f"forward and {launches['flash_attention_bwd'] / n_steps:.0f} "
+          "backward launches a step", flush=True)
+    if device_ms > 0:
+        print(f"profiled step {profile_at}: {device_ms:.2f} ms device kernel "
+              f"time against {step_ms:.1f} ms a step: device idle "
+              f"{1 - device_ms / step_ms:.1%}")
+        for name, (us, count) in top:
+            print(f"  {us / 1e3:8.3f} ms {count:5d}x  {name[:90]}")
+    else:
+        print("profiled step: device time not measured (the profiler "
+              "recorded no device kernels)")
+    opt_us, opt_launches = prof_out.get("adamw") or (0, 0)
+    opt_ms = opt_us / 1e3
+    check(len(opt_span) == 1, "the profiled step ran no AdamW update")
+    (ev0, ev1), n_leaves, n_params = opt_span[0]
+    span_ms = ev0.elapsed_time(ev1)
+    # read p, g, m, v and write p, m, v once each, f32
+    opt_bound = n_params * 4 * 7 / HBM_BYTES_PER_S * 1e3
+    if opt_ms > 0:
+        print(f"  AdamW update of {n_leaves} leaves in that step: "
+              f"{opt_ms:.2f} ms device kernel time in {opt_launches} "
+              f"launches, {span_ms:.2f} ms between its CUDA events (device "
+              f"idle in it {1 - opt_ms / span_ms:.1%}); bound (bytes) "
+              f"{opt_bound:.2f} ms", flush=True)
+    else:
+        print(f"  AdamW update: device time not measured (the profiler "
+              f"attributed no kernel to it); {span_ms:.2f} ms between its "
+              f"CUDA events; bound (bytes) {opt_bound:.2f} ms", flush=True)
+    return dict(losses=losses, step_ms=step_ms, step_s=times,
+                tokens_per_s=tok_s, wall_s=wall, launches=launches,
+                launches_per_step={k: v / n_steps for k, v in launches.items()},
+                device_ms=device_ms or None,
+                idle=(1 - device_ms / step_ms) if device_ms else None,
+                top=[(name, us / 1e3, count) for name, (us, count) in top],
+                optimizer=dict(device_ms=opt_ms or None,
+                               launches=opt_launches or None,
+                               span_ms=span_ms, leaves=n_leaves,
+                               bound_ms=opt_bound))
+
+
+def phase_grad_guard(torch, device, api, get_arch, dops):
+    """Under grad mode, a forward whose kernel has no backward yet raises the
+    grad guard's error on the card: rwkv6 smoke (K4), jamba smoke (K3), and
+    K1 called with a query that requires grad."""
+    seen = {}
+    for arch, kernel in (("rwkv6-1.6b", "rwkv6_scan"),
+                         ("jamba-1.5-large-398b", "ssm_scan")):
+        cfg = dataclasses.replace(get_arch(arch).smoke, param_dtype="float32",
+                                  compute_dtype="float32")
+        params = api.init_params(torch.Generator(device=device).manual_seed(0),
+                                 cfg)
+        for leaf in _leaves(params):
+            leaf.requires_grad_()
+        tokens = torch.zeros((1, 8), dtype=torch.int64, device=device)
+        try:
+            api.forward(params, cfg, {"tokens": tokens}, remat="none")
+        except RuntimeError as e:
+            seen[kernel] = str(e)
+        check(f"{kernel}: the backward of this CUDA kernel is not ported yet"
+              in seen.get(kernel, ""), f"{arch} forward under grad did not "
+              f"raise the {kernel} grad guard: {seen.get(kernel)}")
+    q = torch.randn(1, 2, 16, device=device, requires_grad=True)
+    kv = torch.randn(1, 2, 8, 16, device=device)
+    try:
+        dops.decode_attention(q, kv, kv, torch.tensor(
+            [8], dtype=torch.int32, device=device))
+    except RuntimeError as e:
+        seen["decode_attention"] = str(e)
+    check("decode_attention: the backward" in seen.get("decode_attention", ""),
+          "decode_attention under grad did not raise the grad guard")
+    with torch.no_grad():     # the guard lets no-grad callers through
+        dops.decode_attention(q, kv, kv, torch.tensor(
+            [8], dtype=torch.int32, device=device))
+    for kernel, msg in seen.items():
+        print(f"  {kernel}: raised under grad: {msg[:100]}...")
+    return seen
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, help="write every number here (JSON)")
@@ -812,18 +1208,22 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
 
-    from repro_torch.core.config import get_arch
+    from repro_torch.core.config import OptimizerConfig, get_arch
     from repro_torch.core.device import resolve_device
+    from repro_torch.data import pipeline
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import bwd as bops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.rwkv6_scan import ops as kops
     from repro_torch.kernels.ssm_scan import ops as sops
-    from repro_torch.launch import serve, steps
+    from repro_torch.launch import serve, steps, train
     from repro_torch.models import api
+    from repro_torch.optim import adamw
 
     kernels = {"decode_attention": dops, "flash_attention": fops,
-               "ssm_scan": sops, "rwkv6_scan": kops}
+               "flash_attention_bwd": bops, "ssm_scan": sops,
+               "rwkv6_scan": kops}
     t_start = time.perf_counter()
     # ---- 1. build and device -------------------------------------------
     print("== 1. build and device", flush=True)
@@ -894,6 +1294,14 @@ def main(argv=None) -> int:
                               (1, 50, 50, 8)):
             rows["ssm_scan"].append(
                 ssm_case(torch, sops, Bz, S, di, ds, dtype, gen))
+    # K2's backward: qwen's training shape in f32 and in bf16, a GQA group
+    # of 2 at hd 128, and a query offset with Sq < Sk
+    for case in ((4, 16, 16, 512, 512, 64, True, 0, "float32"),
+                 (4, 16, 16, 512, 512, 64, True, 0, "bfloat16"),
+                 (2, 32, 16, 512, 512, 128, True, 0, "float32"),
+                 (2, 16, 16, 128, 512, 64, True, 384, "float32")):
+        rows["flash_attention_bwd"].append(flash_bwd_case(
+            torch, F, fops, bops, *case[:-1], dtype=case[-1], gen=gen))
     # jamba CARD, u/B/C bf16 and dt f32: one prompt's prefill (h0 = 0) at
     # 16-256 tokens and at 2048, and the decode step of 4 slots from their
     # states, out of place and in place (h_out=h0, as the model calls it)
@@ -933,6 +1341,7 @@ def main(argv=None) -> int:
         "flash_attention": rows["flash_attention"][1],
         "ssm_scan": jamba_ssm[256],                 # Bz=1 S=256 prefill
         "rwkv6_scan": rows["rwkv6_scan"][2],        # f32 N=32 S=256
+        "flash_attention_bwd": rows["flash_attention_bwd"][0],  # training
     }
     _print_row("decode (main)", main_rows["decode_attention"])
 
@@ -950,7 +1359,8 @@ def main(argv=None) -> int:
           f"decode kernel launched {n['decode_attention']} times for "
           f"{served['decode_calls']} decode calls of {cfg.num_layers} layers")
     check(n["decode_attention"] > 0, "decode kernel never launched")
-    check(n["flash_attention"] == n["rwkv6_scan"] == n["ssm_scan"] == 0,
+    check(n["flash_attention"] == n["flash_attention_bwd"] == n["rwkv6_scan"]
+          == n["ssm_scan"] == 0,
           f"serving {cfg.name} launched another kernel: {n}")
     prof = phase_profile(torch, cfg, params, device, steps, api)
     print("== 4. ragged batch equals solo decode at full width", flush=True)
@@ -960,6 +1370,21 @@ def main(argv=None) -> int:
                         {"flash_attention": cfg.num_layers}, steps, api)
     del params
     gc.collect()            # the servers' closures hold params in cycles
+    torch.cuda.empty_cache()
+
+    # ---- training: qwen1.5-0.5b through K2 and its backward --------------
+    print(f"== train (a). one step of {cfg.name} cut to 2 layers at full "
+          "width, on the card and on the CPU from the same params", flush=True)
+    step_vs_cpu = phase_train_step_vs_cpu(
+        torch, dataclasses.replace(cfg, num_layers=2), device, kernels, steps,
+        api, adamw, OptimizerConfig, pipeline)
+    print(f"== train (b). {cfg.name} at full width and depth, f32, through "
+          "launch/train.py's main", flush=True)
+    trained = phase_train(torch, np, cfg, kernels, steps, train, adamw)
+    print("== train (c). forward-only kernels refuse grad mode on the card",
+          flush=True)
+    guard = phase_grad_guard(torch, device, api, get_arch, dops)
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ---- 6-7. rwkv6-1.6b at full width -----------------------------------
@@ -976,7 +1401,8 @@ def main(argv=None) -> int:
     want = rcfg.num_layers * 8
     check(n["rwkv6_scan"] == want, f"rwkv6_scan launched {n['rwkv6_scan']} "
           f"times, want {rcfg.num_layers} layers x 8 admissions = {want}")
-    check(n["decode_attention"] == n["flash_attention"] == n["ssm_scan"] == 0,
+    check(n["decode_attention"] == n["flash_attention"]
+          == n["flash_attention_bwd"] == n["ssm_scan"] == 0,
           f"serving {rcfg.name} launched another kernel: {n}")
     prof_r = phase_profile(torch, rcfg, rparams, device, steps, api)
     print("== 7a. prefill 2 x 256 tokens through rwkv6_scan", flush=True)
@@ -1013,7 +1439,8 @@ def main(argv=None) -> int:
     n, calls = served_j["launches"], served_j["decode_calls"]
     want = {"ssm_scan": n_ssm * (8 + calls),
             "decode_attention": n_attn * calls,
-            "flash_attention": n_attn * 8, "rwkv6_scan": 0}
+            "flash_attention": n_attn * 8, "rwkv6_scan": 0,
+            "flash_attention_bwd": 0}
     check(n == want, f"serving {jcfg.name} launched {n}, want {want} "
           f"({n_ssm} Mamba and {n_attn} attention layers, 8 admissions, "
           f"{calls} decode calls)")
@@ -1043,7 +1470,9 @@ def main(argv=None) -> int:
     launches = {"decode_attention": served["launches"]["decode_attention"],
                 "flash_attention": pre["launches"]["flash_attention"],
                 "ssm_scan": served_j["launches"]["ssm_scan"],
-                "rwkv6_scan": served_r["launches"]["rwkv6_scan"]}
+                "rwkv6_scan": served_r["launches"]["rwkv6_scan"],
+                "flash_attention_bwd":
+                    trained["launches"]["flash_attention_bwd"]}
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
     source = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                    "src/repro/kernels/decode_attention/kernel.py:64"),
@@ -1052,7 +1481,11 @@ def main(argv=None) -> int:
               "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                            "src/repro/kernels/ssm_scan/kernel.py:61"),
               "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
-                             "src/repro/kernels/rwkv6_scan/kernel.py:73")}
+                             "src/repro/kernels/rwkv6_scan/kernel.py:73"),
+              # a new kernel: the TPU kernel it differentiates is forward-only
+              "flash_attention_bwd": (
+                  "src/repro_torch/csrc/flash_attention_bwd.cu",
+                  "src/repro/kernels/flash_attention/kernel.py:71")}
     kernel_rows = []
     for name, row in main_rows.items():
         kernel_rows.append({
@@ -1070,6 +1503,8 @@ def main(argv=None) -> int:
              "cases": rows,
              "kernels": kernel_rows, "serve": served, "profile": prof,
              "ragged_err": ragged_err, "prefill": pre,
+             "train_step_vs_cpu": step_vs_cpu, "train": trained,
+             "grad_guard": guard,
              "serve_rwkv": served_r, "profile_rwkv": prof_r,
              "prefill_rwkv": pre_r, "server_solo_err_rwkv": solo_err,
              "jamba": {"params": n_params, "gbytes": gbytes, "init_s": init_s,

@@ -2,13 +2,14 @@
 
 The port's own copy of the dataclasses and the architecture registry of
 ``repro.core.config``: the port imports nothing of the JAX package, so the
-fields it reads are kept here with the same names and defaults.  Sub-configs
+fields it reads are kept here with the same names and defaults, and so are
+the optimizer and training configs.  Sub-configs
 of families the port does not run yet (frontends, convnets) stay as
 ``Optional`` fields that hold ``None`` in every registered config.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 
@@ -123,6 +124,47 @@ class ModelConfig:
             else:
                 kinds.append("dense")
         return kinds
+
+
+# ---------------------------------------------------------------------------
+# Train configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    schedule: str = "cosine"        # "cosine" | "linear" | "constant"
+    # distributed-optimization tricks
+    grad_compression: str = "none"  # "none" | "int8_ef"
+    grad_accum: int = 1
+
+
+@dataclass(frozen=True)
+class RematConfig:
+    policy: str = "dots"            # "none" | "dots" | "full"
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    seq_len: int = 4096
+    global_batch: int = 256
+    steps: int = 100
+    seed: int = 0
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    remat: RematConfig = field(default_factory=RematConfig)
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True
+    log_every: int = 10
 
 
 # ---------------------------------------------------------------------------

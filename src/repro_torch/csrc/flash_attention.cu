@@ -40,6 +40,11 @@
 //    of S and a 4 x (hd / 16) tile of O in registers, so that 8 shared
 //    loads of 16 bytes feed 64 FMAs; K/V tiles of 64 keys arrive by cp.async
 //    into two stages.
+//
+// Both write each query row's log-sum-exp of its scaled visible scores
+// (natural log, f32; +inf for a row with no visible key) when given an lse
+// pointer: the backward (flash_attention_bwd.cu) recomputes the
+// probabilities from it.  Serving passes null and writes nothing more.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -179,8 +184,9 @@ constexpr int wg_smem_bytes() {
 template <int HD>
 __global__ void __launch_bounds__(128)
 wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-             const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out, int Hq,
-             int Hkv, int Sq, int Sk, int hd, int causal, int q_offset, float scale_log2) {
+             const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
+             float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk, int hd, int causal,
+             int q_offset, float scale_log2) {
   constexpr int NS = HD / 64;                       // 64-column slices of hd
   constexpr uint32_t kTileBytes = NS * kSlice * 2;  // one Q, K or V tile
   extern __shared__ unsigned char smem_raw[];
@@ -329,6 +335,11 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   bf16* ob = out + (size_t)bh * Sq * hd;
   const int row0 = q0 + r, row1 = row0 + 8;
+  if (lse != nullptr && lane % 4 == 0) {  // m in units of log2: lse = (m + log2 l) ln 2
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (row0 < Sq) lse[(size_t)bh * Sq + row0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : INFINITY;
+    if (row1 < Sq) lse[(size_t)bh * Sq + row1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : INFINITY;
+  }
 #pragma unroll
   for (int s = 0; s < NS; ++s)
 #pragma unroll
@@ -377,9 +388,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int S, int BH) {
 }
 
 template <int HD>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Hq,
-                         int Hkv, int Sq, int Sk, int hd, int causal, int q_offset,
-                         cudaStream_t st) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int B, int Hq, int Hkv, int Sq, int Sk, int hd, int causal,
+                         int q_offset, cudaStream_t st) {
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, hd, Sq, B * Hq) || !make_map(&km, k, hd, Sk, B * Hkv) ||
       !make_map(&vm, v, hd, Sk, B * Hkv))
@@ -394,7 +405,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   }
   const dim3 grid((Sq + kTile - 1) / kTile, B * Hq);
   wgmma_kernel<HD><<<grid, 128, bytes, st>>>(
-      qm, km, vm, static_cast<bf16*>(out), Hq, Hkv, Sq, Sk, hd, causal, q_offset,
+      qm, km, vm, static_cast<bf16*>(out), lse, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
       1.4426950408889634f / sqrtf((float)hd));
   return cudaGetLastError();
 }
@@ -450,8 +461,8 @@ constexpr int simt_smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kSimtThreads, HD == 128 ? 1 : 2)  // as shared memory allows
 simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            T* __restrict__ out, int Hq, int Hkv, int Sq, int Sk, int hd, int causal,
-            int q_offset, float scale) {
+            T* __restrict__ out, float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+            int hd, int causal, int q_offset, float scale) {
   constexpr int ld = HD + 4, ldp = kTile + 4, NC = HD / 64;
   extern __shared__ __align__(16) float fsmem[];
   float* Qs = fsmem;                       // [64][ld]
@@ -585,6 +596,8 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     for (int o_ = 1; o_ < 16; o_ <<= 1) lt += __shfl_xor_sync(0xffffffffu, lt, o_);
     const int row = q0 + 4 * ty + i;
     if (row >= Sq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * Sq + row] = lt > 0.f ? m[i] + logf(lt) : INFINITY;
     const float inv = 1.f / fmaxf(lt, 1e-30f);
     T* ob = out + ((size_t)bh * Sq + row) * hd;
 #pragma unroll
@@ -598,9 +611,9 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 }
 
 template <typename T, int HD>
-cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, int B, int Hq,
-                        int Hkv, int Sq, int Sk, int hd, int causal, int q_offset,
-                        cudaStream_t st) {
+cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int B, int Hq, int Hkv, int Sq, int Sk, int hd, int causal,
+                        int q_offset, cudaStream_t st) {
   constexpr int bytes = simt_smem_bytes<HD>();
   static_assert(bytes <= kMaxSmem, "shared memory");
   static bool attr_set = false;
@@ -613,40 +626,45 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, 
   const dim3 grid((Sq + kTile - 1) / kTile, B * Hq);
   simt_kernel<T, HD><<<grid, kSimtThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Hq, Hkv, Sq, Sk, hd, causal, q_offset, 1.0f / sqrtf((float)hd));
+      static_cast<T*>(out), lse, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
+      1.0f / sqrtf((float)hd));
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_simt_hd(const void* q, const void* k, const void* v, void* out, int B,
-                           int Hq, int Hkv, int Sq, int Sk, int hd, int causal, int q_offset,
-                           cudaStream_t st) {
-  if (hd <= 64) return launch_simt<T, 64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
-  if (hd <= 128) return launch_simt<T, 128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
+cudaError_t launch_simt_hd(const void* q, const void* k, const void* v, void* out, float* lse,
+                           int B, int Hq, int Hkv, int Sq, int Sk, int hd, int causal,
+                           int q_offset, cudaStream_t st) {
+  if (hd <= 64)
+    return launch_simt<T, 64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
+  if (hd <= 128)
+    return launch_simt<T, 128>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q, out: (B, Hq, Sq, hd); k, v: (B, Hkv, Sk, hd); all contiguous on the
-// device.  dtype 0 = float32, 1 = bfloat16.  bf16 with hd a multiple of 8
-// runs the tensor-core kernel; f32, and bf16 rows TMA cannot describe, the
-// CUDA-core one.  Returns the launch's cudaError_t (0 when it was accepted).
+// device; lse: (B, Hq, Sq) f32, or null.  dtype 0 = float32, 1 = bfloat16.
+// bf16 with hd a multiple of 8 runs the tensor-core kernel; f32, and bf16
+// rows TMA cannot describe, the CUDA-core one.  Returns the launch's cudaError_t (0 when it was accepted).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int B, int Hq, int Hkv, int Sq,
-                               int Sk, int hd, int causal, int q_offset,
+                               void* out, float* lse, int B, int Hq, int Hkv,
+                               int Sq, int Sk, int hd, int causal, int q_offset,
                                int dtype, void* stream) {
   if (B <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || hd <= 0 || hd > 128 || Hq % Hkv != 0 ||
       B * Hq > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_simt_hd<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
+    return launch_simt_hd<float>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
+                                 st);
   if (dtype != 1) return cudaErrorInvalidValue;
   if (hd % 8 != 0)
-    return launch_simt_hd<bf16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
-  if (hd <= 64) return launch_wgmma<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
-  return launch_wgmma<128>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
+    return launch_simt_hd<bf16>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
+  if (hd <= 64)
+    return launch_wgmma<64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
+  return launch_wgmma<128>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

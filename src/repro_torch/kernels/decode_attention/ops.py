@@ -14,6 +14,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.decode_attention import ref
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -121,6 +122,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return decode_attention_ref(q, k, v, kv_len)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
+    refuse_grad("decode_attention", q, k, v)
     B, Hq, hd = q.shape
     _, Hkv, S, _ = k.shape
     group = Hq // Hkv

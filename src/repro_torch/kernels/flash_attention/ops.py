@@ -5,16 +5,25 @@ A CUDA tensor launches ``csrc/flash_attention.cu`` or raises; nothing routes
 it to the plain version.  There, bf16 with a head_dim that is a multiple of 8
 runs on the tensor cores (wgmma, K/V by TMA); f32, and bf16 of another
 head_dim, on the CUDA cores, register-tiled.
+
+Under grad mode, with an input that requires grad, a CUDA call is a
+``torch.autograd.Function``: its forward also writes each query row's
+log-sum-exp, and its backward launches ``csrc/flash_attention_bwd.cu``
+(:mod:`.bwd`).  Outside grad mode no log-sum-exp is written, so serving runs
+the kernel exactly as before.  CPU tensors get :func:`attention_ref`, which
+autograd differentiates.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import ref
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention import bwd, ref
+from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                     attention_ref)
 
 # kernel launches, counted where the kernel is launched and nowhere else
 launches = 0
@@ -22,7 +31,7 @@ launches = 0
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
 def _check(q, k, v) -> None:
@@ -47,30 +56,75 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_attention: tensors must be contiguous")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
-    """Softmax attention forward; query i sits at position q_offset + i.
-
-    q: (B, Hq, Sq, hd); k, v: (B, Hkv, Sk, hd), Hq % Hkv == 0 (query head h
-    reads KV head h // group).  Returns (B, Hq, Sq, hd) in q.dtype.
-    """
+def _launch(q, k, v, causal: bool, q_offset: int, with_lse: bool
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     global launches
-    _check(q, k, v)
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+        lse = attention_lse_ref(q, k, causal=causal, q_offset=q_offset) \
+            if with_lse else None
+        return attention_ref(q, k, v, causal=causal, q_offset=q_offset), lse
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     B, Hq, Sq, hd = q.shape
     _, Hkv, Sk, _ = k.shape
     fn = _build.function("flash_attention", _ARGTYPES)
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
-             Hkv, Sq, Sk, hd, int(causal), int(q_offset), _DTYPES[q.dtype],
-             stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             None if lse is None else lse.data_ptr(), B, Hq, Hkv, Sq, Sk, hd,
+             int(causal), int(q_offset), _DTYPES[q.dtype], stream)
     _build.check("flash_attention", err)
     launches += 1
-    return out
+    return out, lse
 
 
-__all__ = ["flash_attention", "attention_ref", "ref"]
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, q_offset: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the forward and each query row's log-sum-exp (B, Hq, Sq)
+    f32, as :class:`FlashAttention` keeps them for the backward; the kernel
+    for CUDA tensors, the plain versions for CPU tensors.  No autograd."""
+    _check(q, k, v)
+    return _launch(q, k, v, causal, q_offset, with_lse=True)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel, keeping the row log-sum-exps, and the backward
+    kernel for its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int):
+        out, lse = _launch(q, k, v, causal, q_offset, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = bwd.flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+            q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Softmax attention forward; query i sits at position q_offset + i.
+
+    q: (B, Hq, Sq, hd); k, v: (B, Hkv, Sk, hd), Hq % Hkv == 0 (query head h
+    reads KV head h // group).  Returns (B, Hq, Sq, hd) in q.dtype, with a
+    ``grad_fn`` when grad mode is on and an input requires grad.
+    """
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, int(q_offset))
+    return _launch(q, k, v, causal, q_offset, with_lse=False)[0]
+
+
+__all__ = ["flash_attention", "flash_attention_fwd", "FlashAttention",
+           "attention_ref", "bwd", "ref"]

@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.rwkv6_scan import ref
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
@@ -86,6 +87,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return rwkv6_scan_ref(r, k, v, logw, u, state0)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_scan: no kernel for {r.device}")
+    refuse_grad("rwkv6_scan", r, k, v, logw, u, state0)
     N, S, hd = r.shape
     fn = _build.function("rwkv6_scan", _ARGTYPES)
     out = torch.empty((N, S, hd), dtype=torch.float32, device=r.device)

@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.ssm_scan import ref
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -101,6 +102,7 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         return y, h if h_out is None else h_out.copy_(h)
     if u.device.type != "cuda":
         raise ValueError(f"ssm_scan: no kernel for {u.device}")
+    refuse_grad("ssm_scan", u, dt, A_log, B, C, D, h0)
     Bz, S, di = u.shape
     ds = A_log.shape[1]
     y = torch.empty((Bz, S, di), dtype=torch.float32, device=u.device)

@@ -123,7 +123,18 @@ class BatchedServer:
 
     def admit(self, req: Request) -> bool:
         """Prefill a request into a free slot: alone through ``prefill`` for
-        a recurrent model, else token by token."""
+        a recurrent model, else token by token.
+
+        A recurrent model's prompt must be shorter than ``max_len``: its
+        attention cache is copied whole into the slot, so a longer one has
+        no room (``ValueError``, raised before a slot is taken).  Token-by-
+        token admission keeps the reference's behaviour there: positions
+        past the end are clamped to the last one."""
+        if self.prefill is not None and len(req.prompt) >= self.max_len:
+            raise ValueError(
+                f"request {req.rid}: prompt of {len(req.prompt)} tokens does "
+                f"not fit a slot of max_len {self.max_len} (a prompt must "
+                "leave room for at least one generated token)")
         try:
             slot = self.slot_req.index(None)
         except ValueError:

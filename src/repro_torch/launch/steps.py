@@ -1,14 +1,42 @@
-"""Step functions (PyTorch twin of ``repro.launch.steps``): prefill and
-decode.  The training step comes with the training slice (ROADMAP.md,
-Queue 1 item 6)."""
+"""Step functions (PyTorch twin of ``repro.launch.steps``): train, prefill
+and decode."""
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
 
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import ModelConfig, OptimizerConfig
 from repro_torch.models import api
+from repro_torch.optim import adamw
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
+                    remat: str = "dots") -> Callable:
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss and its gradient with respect to every param leaf
+    (``torch.autograd.grad``), then one AdamW step.  The params, ``m``,
+    ``v`` and ``ef`` are updated in place and returned (the gradient is taken
+    through detached aliases of the leaves, so the caller's tensors never
+    require grad); metrics are the loss's and the optimizer's, as 0-d
+    tensors on the params' device."""
+
+    def train_step(params, opt_state, batch):
+        items = adamw.named_leaves(params)
+        alias = {path: leaf.detach().requires_grad_() for path, leaf in items}
+        live = adamw.tree_like(params, alias)
+        with torch.enable_grad():
+            loss, metrics = api.loss_fn(live, cfg, batch, remat=remat)
+            grads = torch.autograd.grad(loss, [alias[p] for p, _ in items])
+        grads = adamw.tree_like(params, {
+            path: g for (path, _), g in zip(items, grads)})
+        params, opt_state, opt_metrics = adamw.adamw_update(
+            params, grads, opt_state, opt_cfg)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(opt_metrics)
+        return params, opt_state, metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:

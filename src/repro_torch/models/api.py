@@ -1,6 +1,9 @@
 """Unified model API (PyTorch twin of ``repro.models.api``): family dispatch.
 
   init_params(gen, cfg)                       -> param tree on gen.device
+  param_shapes(cfg)                           -> TensorSpec tree (allocates nothing)
+  param_count(cfg, active_only=False)         -> int
+  loss_fn(params, cfg, batch)                 -> (scalar, metrics)
   forward(params, cfg, batch)                 -> (logits, aux)
   prefill(params, cfg, batch)                 -> (logits, cache)
   decode_step(params, cfg, state, tokens, pos)-> (logits, state)
@@ -9,10 +12,15 @@
 """
 from __future__ import annotations
 
+import math
+
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.core.config import ModelConfig
+from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
+from repro_torch.models.attention import TensorSpec
 
 
 # the decoder-only families the port runs ("vlm" waits for its prefix)
@@ -29,6 +37,35 @@ def _mod(cfg: ModelConfig):
 
 def init_params(gen: torch.Generator, cfg: ModelConfig):
     return _mod(cfg).init_params(gen, cfg)
+
+
+def param_shapes(cfg: ModelConfig):
+    """The param tree's shapes and dtypes, from an init traced with fake
+    tensors (the twin of the reference's ``jax.eval_shape``)."""
+    with FakeTensorMode():
+        fake = init_params(torch.Generator(), cfg)
+    return L.tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), fake)
+
+
+def _leaf_sizes_with_paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [item for k, v in tree.items()
+                for item in _leaf_sizes_with_paths(v, f"{prefix}/{k}")]
+    return [(prefix, math.prod(tree.shape))]
+
+
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    total = 0
+    for path, n in _leaf_sizes_with_paths(param_shapes(cfg)):
+        if active_only and cfg.moe is not None and "ffn_moe/w_" in path:
+            # routed experts: only top-k of E are active per token
+            n = n * cfg.moe.num_experts_per_tok // cfg.moe.num_experts
+        total += n
+    return total
+
+
+def loss_fn(params, cfg: ModelConfig, batch, **kw):
+    return _mod(cfg).loss_fn(params, cfg, batch, **kw)
 
 
 def forward(params, cfg: ModelConfig, batch, **kw):

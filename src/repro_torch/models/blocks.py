@@ -12,9 +12,11 @@ Queue 1 item 9).
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple, Union
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import attention as ATT
@@ -176,30 +178,72 @@ def stack_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> Params:
         lambda s: ATT.TensorSpec((n_periods,) + s.shape, s.dtype), per)}
 
 
+# the products whose outputs "dots" keeps (the reference's
+# dots_with_no_batch_dims_saveable keeps the dot_generals without batch
+# dimensions: the projections, which torch runs as these)
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, remat: str):
+    """``fn`` under activation checkpointing (the twin of the reference's
+    ``_remat_wrap``): "none" stores every activation; "full" stores only
+    ``fn``'s inputs and recomputes the rest in the backward; "dots" also
+    keeps the outputs of the matrix products (selective checkpointing)."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_products))
+    raise ValueError(f"remat must be 'none', 'dots' or 'full'; got {remat!r}")
+
+
 def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 mode: str, cache: Optional[Params] = None, pos=None,
-                causal: bool = True,
+                causal: bool = True, remat: str = "none",
                 ) -> Tuple[torch.Tensor, Optional[Params], Union[torch.Tensor, float]]:
     """Run the periods in order.  Returns (x, new_cache, total_aux): the
     cache is, in decode, the cache tensors themselves, updated in place; in
     prefill a new cache stacked on the period axis; in train None.  The aux
-    loss is 0.0 for a stack without MoE."""
+    loss is 0.0 for a stack without MoE.  ``remat`` checkpoints each period
+    in train mode (see :func:`_remat_wrap`); other modes ignore it."""
     period, n_periods = _ported_pattern(cfg)
     total_aux = 0.0
     per_period = []
-    for i in range(n_periods):
-        p_params = L.tree_map(lambda t: t[i], params["periods"])
-        p_cache = None if cache is None else \
-            L.tree_map(lambda t: t[i], cache["periods"])
-        caches_out = {}
+
+    def period_fn(x, p_params, p_cache):
+        caches_out, aux_sum = {}, 0.0
         for j, (m, f) in enumerate(period):
             x, c, aux = apply_block(
                 p_params[f"sub{j}"], x, cfg, m, f, mode=mode,
                 cache=None if p_cache is None else p_cache[f"sub{j}"],
                 pos=pos, causal=causal)
-            total_aux = total_aux + aux
+            aux_sum = aux_sum + aux
             if c is not None:
                 caches_out[f"sub{j}"] = c
+        return x, caches_out, aux_sum
+
+    body = _remat_wrap(period_fn, remat if mode == "train" else "none")
+    # one view per period of each stacked leaf, taken at once: the backward
+    # of unbind stacks the periods' gradients in one op, where indexing each
+    # period (t[i]) would give every period a zero-filled gradient of the
+    # whole stack and add them up (quadratic in depth)
+    unbound = L.tree_map(lambda t: t.unbind(0), params["periods"])
+    for i in range(n_periods):
+        p_params = L.tree_map(lambda views: views[i], unbound)
+        p_cache = None if cache is None else \
+            L.tree_map(lambda t: t[i], cache["periods"])
+        x, caches_out, aux = body(x, p_params, p_cache)
+        total_aux = total_aux + aux
         per_period.append(caches_out)
     if mode == "decode":
         return x, cache, total_aux

@@ -1,16 +1,15 @@
 """Decoder-only language model (PyTorch twin of ``repro.models.lm``).
 
 Public surface (used by repro_torch.models.api):
-  init_params, forward, init_decode_state, allocate_decode_state, prefill,
-  decode_step
-The training losses (``chunked_xent``, ``loss_fn``) come with the training
-slice (ROADMAP.md, Queue 1 item 6).
+  init_params, forward, hidden_states, chunked_xent, loss_fn,
+  init_decode_state, allocate_decode_state, prefill, decode_step
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import blocks as B
@@ -51,13 +50,66 @@ def _embed_inputs(p: Params, cfg: ModelConfig,
 
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
-            mode: str = "train") -> Tuple[torch.Tensor, torch.Tensor]:
+            mode: str = "train", remat: str = "dots",
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward. Returns (logits (B, S, V) f32, aux)."""
-    x = _embed_inputs(p, cfg, batch)
-    x, _, aux = B.apply_stack(p["stack"], x, cfg, mode="train")
-    x = L.apply_norm(p["final_norm"], x, cfg.norm_eps)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    x, aux = hidden_states(p, cfg, batch, remat=remat)
     return _head(p, x, cfg), aux
+
+
+def hidden_states(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                  *, remat: str = "dots") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Final-norm hidden states (pre-head). Returns (h, aux f32 scalar)."""
+    x = _embed_inputs(p, cfg, batch)
+    x, _, aux = B.apply_stack(p["stack"], x, cfg, mode="train", remat=remat)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    return L.apply_norm(p["final_norm"], x, cfg.norm_eps), aux
+
+
+def _chunk_nll(p: Params, cfg: ModelConfig, h: torch.Tensor,
+               targets: torch.Tensor, mask: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    logits = _head(p, h, cfg).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
+    return torch.sum(nll * mask), torch.sum(mask)
+
+
+def chunked_xent(p: Params, cfg: ModelConfig, h: torch.Tensor,
+                 targets: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                 chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy without materialising the (B, S, V) logits: the
+    head projection and log-softmax run per chunk of ``chunk`` positions
+    under activation checkpointing, so the backward recomputes one chunk's
+    logits at a time.  A ragged last chunk is taken as it is (the reference
+    pads it and masks the padding out)."""
+    Bz, S, _ = h.shape
+    chunk = min(chunk, S)
+    mf = torch.ones((Bz, S), dtype=torch.float32, device=h.device) \
+        if mask is None else mask.float()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, S, chunk):
+        part = slice(s0, s0 + chunk)
+        t, c = checkpoint(_chunk_nll, p, cfg, h[:, part], targets[:, part],
+                          mf[:, part], use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
+            remat: str = "dots") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy (+ MoE aux); the chunked head and
+    cross-entropy keep the (B, S, V) logits out of memory.  Returns (total,
+    {"loss", "aux", "total"})."""
+    h, aux = hidden_states(p, cfg, batch, remat=remat)
+    targets = batch["tokens"][:, 1:]
+    mask = batch.get("loss_mask")
+    loss = chunked_xent(p, cfg, h[:, :-1], targets,
+                        None if mask is None else mask[:, 1:])
+    aux_coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
+    total = loss + aux_coef * aux
+    return total, {"loss": loss, "aux": aux, "total": total}
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,9 @@ def test_port_files_exist():
                  "kernels/flash_attention/ops.py", "models/rwkv6.py",
                  "configs/rwkv6_1_6b.py", "kernels/rwkv6_scan/ops.py",
                  "models/ssm.py", "configs/jamba_1_5_large_398b.py",
-                 "configs/granite_moe_1b_a400m.py", "kernels/ssm_scan/ops.py"):
+                 "configs/granite_moe_1b_a400m.py", "kernels/ssm_scan/ops.py",
+                 "optim/adamw.py", "launch/train.py", "data/pipeline.py",
+                 "runtime/supervisor.py", "checkpoint/manager.py"):
         assert f"src/repro_torch/{twin}" in names
     assert "chip_smoke.py" in names
 
