@@ -17,8 +17,11 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    at a 2048-token prompt and in place at the decode step; the flash-
    attention backward (fed the forward kernel's output and row log-sum-
    exps) against the plain backward and against autograd over the plain
-   forward, at qwen's training shape in f32 and bf16, a GQA group of 2 at
-   hd 128 and a query offset;
+   forward, bit-equal to itself and to the autograd path, at qwen's
+   training shape in f32 and bf16 (its CUDA-core route timed beside the
+   tensor cores), a GQA group of 2 at hd 128, a query offset, the ragged
+   and small shapes of the CPU tests, jamba's attention and two head dims
+   only the CUDA cores take;
 3. serve 8 requests with the port's ``BatchedServer`` on qwen1.5-0.5b at
    full width (24 layers, d_model 1024, vocab 151,936, f32, random weights
    from a seed): every decode step must go through the decode kernel;
@@ -33,8 +36,10 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    and "full"; (b) qwen1.5-0.5b at full width and depth in f32, batch 4 x
    512, 30 steps through ``launch/train.py``'s ``main`` with a checkpoint:
    the loss must fall, every step runs the flash-attention kernel and its
-   backward once per layer, one step is profiled; (c) under grad mode, the
-   forward-only kernels (the WKV and selective scans, flash-decode) raise;
+   backward once per layer, one step is profiled; (b2) the same in bf16
+   (``--dtype bfloat16``), two steps and one profiled, the loss finite;
+   (c) under grad mode, the forward-only kernels (the WKV and selective
+   scans, flash-decode) raise;
 6. serve the same traffic on rwkv6-1.6b at full width (24 layers, d_model
    2048, vocab 65,536, f32, random weights from a seed): every admission
    prefills its prompt through the WKV scan kernel, once per layer;
@@ -77,12 +82,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # the port's kernels, by the name of their __global__ function (each is
-# defined at the start of a line of src/repro_torch/csrc/*.cu)
-PORT_KERNELS = {name for src in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")
-                for name in re.findall(r"^(\w+_kernel)\(", src.read_text(), re.M)}
-# H100 SXM data sheet peaks (dense), used for each kernel's bound
+# defined at the start of a line of src/repro_torch/csrc/*.cu), and the
+# source (stem) that defines each
+KERNEL_SOURCE = {
+    name: src.stem
+    for src in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")
+    for name in re.findall(r"^(\w+_kernel)\(", src.read_text(), re.M)}
+PORT_KERNELS = set(KERNEL_SOURCE)
+# H100 SXM data sheet peaks (dense), used for each kernel's bound, by the
+# arithmetic the kernel runs: f32 FMA on the CUDA cores, bf16 on the tensor
+# cores, and f32 as three TF32 products on the tensor cores (495 / 3)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 # tests/test_kernels.py's tolerances
 TOL = {"float32": dict(atol=3e-5, rtol=0.0),
        "bfloat16": dict(atol=3e-2, rtol=1e-2)}
@@ -214,15 +225,25 @@ def range_kernels(prof, name: str):
     return sum(r.end - r.start for r in inside), len(inside)
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol, e.g.
+    ``wg_dkdv_kernel<64>``, ``dkdv_kernel<bf16,128>``."""
+    rest = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "", mangled)
+    m = re.match(r"(\w+?_kernel)(?:I(.*?E)E|E)", rest)
+    if not m:
+        return rest.split("EEv")[0]
+    args = [t[1] or ("bf16" if t[0].startswith("13") else "float")
+            for t in re.finditer(r"13__nv_bfloat16|Li(\d+)E|f", m[2] or "")]
+    return m[1] + (f"<{','.join(args)}>" if args else "")
+
+
 def _ptxas_summary(log: str) -> list:
     """(kernel, "N registers, S bytes spill stores") per kernel that
-    ``nvcc -Xptxas -v`` reported, the kernel's name cut from its mangling."""
+    ``nvcc -Xptxas -v`` reported."""
     out, kernel, spill = [], None, ""
     for line in log.splitlines():
         if "Function properties for" in line:
-            mangled = line.rsplit(" ", 1)[-1]
-            kernel = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d+", "",
-                            mangled).split("EEv")[0]
+            kernel = _kernel_name(line.rsplit(" ", 1)[-1])
         elif "spill stores" in line:
             spill = line.split(",")[1].strip()
         elif "registers" in line and kernel:
@@ -232,19 +253,27 @@ def _ptxas_summary(log: str) -> list:
     return out
 
 
-def _tensor_core_ops(so: Path, op: str) -> tuple:
-    """(count, how many of them wait for their group's end (gsb0), first)
-    of the SASS instructions named ``op`` (HGMMA, HMMA) in a built kernel
-    library, by cuobjdump.  Only a group's last HGMMA waits unless ptxas
-    serialized the group."""
+def _tensor_core_ops(so: Path) -> dict:
+    """{kernel: {op: [count, how many wait for their group's end (gsb0),
+    first]}} of the tensor-core SASS instructions (HGMMA, HMMA) of each
+    kernel of a built library, by cuobjdump.  Only a group's last HGMMA
+    waits unless ptxas serialized the group."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     res = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                          text=True, timeout=300)
     check(res.returncode == 0, f"cuobjdump failed: {res.stderr.strip()}")
-    found = [line.split("*/", 1)[1].split(";")[0].strip()
-             for line in res.stdout.splitlines() if f" {op}." in line]
-    return (len(found), sum("gsb0" in f for f in found),
-            found[0] if found else None)
+    out, kernel = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            kernel = _kernel_name(line.split("Function :", 1)[1].strip())
+            continue
+        for op in ("HGMMA", "HMMA"):
+            if f" {op}." in line and kernel:
+                instr = line.split("*/", 1)[1].split(";")[0].strip()
+                row = out.setdefault(kernel, {}).setdefault(op, [0, 0, instr])
+                row[0] += 1
+                row[1] += "gsb0" in instr
+    return out
 
 
 def gpu_name_and_power_limit() -> str:
@@ -359,13 +388,16 @@ def flash_case(torch, F, fops, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
 
 
 def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
-                   q_offset, dtype, gen):
+                   q_offset, dtype, gen, compare=False, profile=False):
     """One check of the flash-attention backward kernel + timings.  The
     forward kernel's row log-sum-exps are held to the plain version's; the
     backward kernel, fed the forward kernel's output and lse, to the plain
     backward fed the same, and to autograd over the plain forward; the
-    autograd path (``flash_attention`` under grad) must give the kernel's
-    gradients bit for bit."""
+    autograd path (``flash_attention`` under grad) and a second call must
+    give the kernel's gradients bit for bit.  ``compare``: the CUDA-core
+    route too, checked and timed beside the tensor-core one; ``profile``:
+    each launch timed by the profiler (``launch_us``).  The bound takes the
+    rate of the arithmetic the route runs (bf16 wgmma, 3xTF32 or f32 FMA)."""
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.randn(*shape, device="cuda", generator=gen).to(dt)
                    for shape in ((B, Hq, Sq, hd), (B, Hkv, Sk, hd),
@@ -387,6 +419,10 @@ def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
     path = torch.autograd.grad(fops.flash_attention(*leaves, **kw), leaves, do)
     check(all(torch.equal(g, p) for g, p in zip(got, path)),
           "the autograd path's gradients differ from the kernel's")
+    again = bops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          "two calls on the same inputs differ")
+    route = bops.route(dt, hd)
 
     lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     if causal and q_offset == 0 and Sq == Sk:
@@ -402,6 +438,17 @@ def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
     def library():   # SDPA's backward alone, on the same tensors
         return torch.autograd.grad(lib_out, lib_in, do, retain_graph=True)
 
+    extra = {}
+    if compare and route == "tensor_cores":
+        simt = functools.partial(bops.flash_attention_bwd, q, k, v, out, lse,
+                                 do, **kw, via="cuda_cores")
+        extra["cuda_cores_err"] = max(_within(torch, g, w, BWD_TOL[dtype])
+                                      for g, w in zip(simt(), want))
+        extra["cuda_cores_ms"] = time_ms(torch, simt)[0]
+    if profile:
+        extra["launch_us"] = launch_us(torch, lambda: bops.flash_attention_bwd(
+            q, k, v, out, lse, do, **kw))
+
     if causal:   # visible (query, key) pairs
         pairs = sum(min(Sk, max(0, q_offset + i + 1)) for i in range(Sq))
     else:
@@ -412,18 +459,18 @@ def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
     nbytes = (4 * B * Hq * Sq * hd + 4 * B * Hkv * Sk * hd) * elem \
         + 4 * B * Hq * Sq
     flops = 10.0 * B * Hq * pairs * hd
+    rate = "float32" if route == "cuda_cores" else \
+        "tf32x3" if dtype == "float32" else "bfloat16"
     return dict(
         shape=(f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} hd={hd} "
                f"causal={causal} q_offset={q_offset}"),
-        dtype=dtype, max_abs_err=err, err_vs_autograd=err_auto,
-        lse_err=lse_err,
+        dtype=dtype, route=route, rate=rate, max_abs_err=err,
+        err_vs_autograd=err_auto, lse_err=lse_err, **extra,
         **_timings(torch,
                    lambda: bops.flash_attention_bwd(q, k, v, out, lse, do, **kw),
                    lambda: fops.ref.attention_bwd_ref(q, k, v, out, lse, do,
                                                       **kw), library),
-        launch_us=launch_us(torch, lambda: bops.flash_attention_bwd(
-            q, k, v, out, lse, do, **kw)),
-        **_bound(nbytes, flops, dtype))
+        **_bound(nbytes, flops, rate))
 
 
 def _wkv_f64(torch, r, k, v, logw, u, state0):
@@ -560,6 +607,10 @@ def _print_row(name, row):
              if row.get("library_causal_ms") else "")
           + (f"err_vs_autograd={row['err_vs_autograd']:.2e} lse_err="
              f"{row['lse_err']:.2e} " if "err_vs_autograd" in row else "")
+          + (f"route={row['route']} ({row['rate']}) " if "route" in row
+             else "")
+          + (f"cuda_cores_ms={row['cuda_cores_ms']:.4f} cuda_cores_err="
+             f"{row['cuda_cores_err']:.2e} " if "cuda_cores_ms" in row else "")
           + (f"err_vs_plain={row['err_vs_plain']:.2e} plain_err="
              f"{row['plain_err']:.2e} " if "plain_err" in row else "")
           + ("launch_us=" + ",".join(f"{k}:{v:.2f}" for k, v in
@@ -1026,15 +1077,17 @@ def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
 
 
 def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
-                batch=4, seq=512, profile_at=10):
-    """``launch/train.py``'s own ``main`` on the card: ``n_steps`` steps of
-    the synthetic pipeline, checkpointing into a temporary directory.  Each
-    step is timed on the host clock, ending in a synchronise; one step is
-    profiled for its device kernel time, with its AdamW update in a range of
-    its own (its kernels' device time and count, and its span between two
-    CUDA events).  The loss must fall by tests/test_system.py's criterion,
-    and every step must run K2 and its backward once per layer and no other
-    kernel."""
+                batch=4, seq=512, profile_at=10, dtype="float32",
+                converge=True):
+    """``launch/train.py``'s own ``main`` on the card (``--dtype dtype``):
+    ``n_steps`` steps of the synthetic pipeline, checkpointing into a
+    temporary directory.  Each step is timed on the host clock, ending in a
+    synchronise; step ``profile_at`` is profiled for its device kernel time
+    (K2's forward and backward kernels apart), with its AdamW update in a
+    range of its own (its kernels' device time and count, and its span
+    between two CUDA events).  The loss must be finite and, with
+    ``converge``, fall by tests/test_system.py's criterion; every step must
+    run K2 and its backward once per layer and no other kernel."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1082,6 +1135,7 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
             losses = train.main(["--arch", "qwen1.5-0.5b", "--steps",
                                  str(n_steps), "--batch", str(batch),
                                  "--seq", str(seq), "--warmup", "5",
+                                 "--dtype", dtype,
                                  "--ckpt-dir", ckpt_dir, "--ckpt-every",
                                  "1000", "--log-every", "10"])
             wall = time.perf_counter() - t0
@@ -1098,8 +1152,8 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
     check(len(losses) == n_steps and bool(np.isfinite(losses).all()),
           f"losses {losses}")
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    check(last5 < first5 - 0.05, f"the loss did not fall: first five "
-          f"{first5:.4f}, last five {last5:.4f}")
+    check(not converge or last5 < first5 - 0.05, f"the loss did not fall: "
+          f"first five {first5:.4f}, last five {last5:.4f}")
     check(f"step_{n_steps:09d}" in saved, f"no checkpoint of the last step "
           f"in {saved}")
     steady = sorted(t for i, t in enumerate(times) if i not in (0, profile_at))
@@ -1107,10 +1161,20 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
     kern = prof_out.get("kernels", {})
     device_ms = sum(us for us, _ in kern.values()) / 1e3
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+    # K2's forward and backward kernels in the profiled step: (ms, launches)
+    k2 = {stem: [0.0, 0] for stem in ("flash_attention",
+                                      "flash_attention_bwd")}
+    for name, (us, count) in kern.items():
+        m = re.match(r"void \(anonymous namespace\)::(\w+)[<(]", name)
+        stem = KERNEL_SOURCE.get(m[1]) if m else None
+        if stem in k2:
+            k2[stem][0] += us / 1e3
+            k2[stem][1] += count
     tok_s = batch * seq / (step_ms / 1e3)
-    print(f"trained {n_steps} steps of B={batch} x S={seq} in {wall:.1f} s "
-          f"(checkpoint included); loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-          f"(first five {first5:.4f}, last five {last5:.4f}); step "
+    print(f"trained {n_steps} steps of B={batch} x S={seq} in {dtype} in "
+          f"{wall:.1f} s (checkpoint included); loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (first five {first5:.4f}, last five "
+          f"{last5:.4f}); step "
           f"{step_ms:.1f} ms median host wall (first {times[0] * 1e3:.1f} "
           f"ms), {tok_s:.0f} tokens/s; K2 {launches['flash_attention'] / n_steps:.0f} "
           f"forward and {launches['flash_attention_bwd'] / n_steps:.0f} "
@@ -1118,7 +1182,11 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
     if device_ms > 0:
         print(f"profiled step {profile_at}: {device_ms:.2f} ms device kernel "
               f"time against {step_ms:.1f} ms a step: device idle "
-              f"{1 - device_ms / step_ms:.1%}")
+              f"{1 - device_ms / step_ms:.1%}; K2 forward "
+              f"{k2['flash_attention'][0]:.3f} ms in "
+              f"{k2['flash_attention'][1]} launches, backward "
+              f"{k2['flash_attention_bwd'][0]:.3f} ms in "
+              f"{k2['flash_attention_bwd'][1]} launches (3 a call)")
         for name, (us, count) in top:
             print(f"  {us / 1e3:8.3f} ms {count:5d}x  {name[:90]}")
     else:
@@ -1146,6 +1214,7 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
                 launches_per_step={k: v / n_steps for k, v in launches.items()},
                 device_ms=device_ms or None,
                 idle=(1 - device_ms / step_ms) if device_ms else None,
+                k2_device_ms=k2,
                 top=[(name, us / 1e3, count) for name, (us, count) in top],
                 optimizer=dict(device_ms=opt_ms or None,
                                launches=opt_launches or None,
@@ -1235,14 +1304,28 @@ def main(argv=None) -> int:
     for name, kernels_of in ptxas.items():
         for kernel, info in kernels_of:
             print(f"  {name}: {kernel}: {info}")
-    # the bf16 products run on the tensor cores: wgmma in K2, mma.sync in K1
-    sass = {}
-    for name, op in (("flash_attention", "HGMMA"), ("decode_attention", "HMMA")):
-        n_ops, n_wait, first = _tensor_core_ops(_build.target(name), op)
-        check(n_ops > 0, f"{name}: no {op} instruction in its SASS")
-        sass[name] = dict(op=op, count=n_ops, gsb0=n_wait, first=first)
-        print(f"  {name}: {n_ops} {op} instructions ({n_wait} with gsb0), "
-              f"e.g. `{first}`")
+    # the products run on the tensor cores: wgmma in K2's bf16 kernel and
+    # its backward's, mma.sync in K1's bf16 kernel and (3xTF32) in K2's f32
+    # backward
+    sass = {name: _tensor_core_ops(_build.target(name)) for name in
+            ("flash_attention", "decode_attention", "flash_attention_bwd")}
+    for name, of_kernel in sass.items():
+        for kernel, ops in sorted(of_kernel.items()):
+            for op, (count, n_wait, first) in ops.items():
+                print(f"  {name}: {kernel}: {count} {op} ({n_wait} with "
+                      f"gsb0), e.g. `{first}`")
+    for name, kernel, op in (
+            ("flash_attention", "wgmma_kernel", "HGMMA"),
+            ("decode_attention", "mma_kernel", "HMMA"),
+            ("flash_attention_bwd", "wg_dkdv_kernel", "HGMMA"),
+            ("flash_attention_bwd", "wg_dq_kernel", "HGMMA"),
+            ("flash_attention_bwd", "tf32_dkdv_kernel", "HMMA"),
+            ("flash_attention_bwd", "tf32_dq_kernel", "HMMA")):
+        found = [ops[op] for name_args, ops in sass[name].items()
+                 if name_args.split("<")[0] == kernel and op in ops]
+        check(bool(found) and all(not kernel.startswith("tf32")
+                                  or "TF32" in first for _, _, first in found),
+              f"{name}: no {op} instruction in {kernel}'s SASS")
     card = gpu_name_and_power_limit()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
@@ -1294,14 +1377,40 @@ def main(argv=None) -> int:
                               (1, 50, 50, 8)):
             rows["ssm_scan"].append(
                 ssm_case(torch, sops, Bz, S, di, ds, dtype, gen))
-    # K2's backward: qwen's training shape in f32 and in bf16, a GQA group
-    # of 2 at hd 128, and a query offset with Sq < Sk
+    # K2's backward.  qwen's training shape in f32 and bf16 (each with the
+    # CUDA-core route timed beside the tensor cores), a GQA group of 2 at
+    # hd 128 and a query offset with Sq < Sk; in both dtypes the shapes of
+    # tests/test_torch_kernels_flash_bwd.py (ragged Sq = Sk = 257, hd 32 and
+    # 16, one query over 200 keys, non-causal GQA 4/1 over 320 keys, a query
+    # offset with Sq < Sk); in bf16 the GQA and query-offset shapes and
+    # jamba's attention (GQA 64/8, hd 128); and two head dims that only the
+    # CUDA cores take (f32 hd 30, bf16 hd 36)
     for case in ((4, 16, 16, 512, 512, 64, True, 0, "float32"),
                  (4, 16, 16, 512, 512, 64, True, 0, "bfloat16"),
                  (2, 32, 16, 512, 512, 128, True, 0, "float32"),
                  (2, 16, 16, 128, 512, 64, True, 384, "float32")):
         rows["flash_attention_bwd"].append(flash_bwd_case(
-            torch, F, fops, bops, *case[:-1], dtype=case[-1], gen=gen))
+            torch, F, fops, bops, *case[:-1], dtype=case[-1], gen=gen,
+            compare=case[3] == 512 and case[5] == 64, profile=True))
+    for dtype in ("float32", "bfloat16"):
+        for case in ((2, 4, 2, 128, 128, 64, True, 0),
+                     (1, 8, 8, 257, 257, 64, True, 0),
+                     (2, 4, 1, 64, 320, 128, False, 0),
+                     (1, 2, 2, 1, 200, 64, False, 0),
+                     (1, 16, 4, 96, 96, 128, True, 0),
+                     (1, 4, 2, 40, 104, 32, True, 64),
+                     (1, 2, 1, 1, 50, 16, True, 49)):
+            rows["flash_attention_bwd"].append(flash_bwd_case(
+                torch, F, fops, bops, *case, dtype=dtype, gen=gen))
+    for case in ((2, 32, 16, 512, 512, 128, True, 0),
+                 (2, 16, 16, 128, 512, 64, True, 384),
+                 (1, 64, 8, 512, 512, 128, True, 0)):   # jamba's
+        rows["flash_attention_bwd"].append(flash_bwd_case(
+            torch, F, fops, bops, *case, dtype="bfloat16", gen=gen,
+            profile=case[1] == 64))
+    for hd, dtype in ((30, "float32"), (36, "bfloat16")):
+        rows["flash_attention_bwd"].append(flash_bwd_case(
+            torch, F, fops, bops, 2, 4, 2, 130, 130, hd, True, 0, dtype, gen))
     # jamba CARD, u/B/C bf16 and dt f32: one prompt's prefill (h0 = 0) at
     # 16-256 tokens and at 2048, and the decode step of 4 slots from their
     # states, out of place and in place (h_out=h0, as the model calls it)
@@ -1381,6 +1490,11 @@ def main(argv=None) -> int:
     print(f"== train (b). {cfg.name} at full width and depth, f32, through "
           "launch/train.py's main", flush=True)
     trained = phase_train(torch, np, cfg, kernels, steps, train, adamw)
+    print(f"== train (b2). {cfg.name} at full width and depth in bf16 "
+          "(--dtype bfloat16): two steps, then one profiled", flush=True)
+    trained_bf16 = phase_train(torch, np, cfg, kernels, steps, train, adamw,
+                               n_steps=3, profile_at=2, dtype="bfloat16",
+                               converge=False)
     print("== train (c). forward-only kernels refuse grad mode on the card",
           flush=True)
     guard = phase_grad_guard(torch, device, api, get_arch, dops)
@@ -1504,6 +1618,7 @@ def main(argv=None) -> int:
              "kernels": kernel_rows, "serve": served, "profile": prof,
              "ragged_err": ragged_err, "prefill": pre,
              "train_step_vs_cpu": step_vs_cpu, "train": trained,
+             "train_bf16": trained_bf16,
              "grad_guard": guard,
              "serve_rwkv": served_r, "profile_rwkv": prof_r,
              "prefill_rwkv": pre_r, "server_solo_err_rwkv": solo_err,

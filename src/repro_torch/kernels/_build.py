@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` at the root
-of the checkout (a directory git ignores).  The hash covers the source and
-the flags, so an edited source is built anew and a built one is reused.
+of the checkout (a directory git ignores).  The hash covers the source,
+every header of ``csrc/`` (``*.cuh``, which a source may include) and the
+flags, so an edited source or header is built anew and a built one is
+reused.
 Nothing is compiled when the package is imported: the first launch of a
 kernel, or :func:`build`, compiles it.
 """
@@ -47,10 +49,11 @@ def nvcc_path() -> str:
 
 
 def target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = ()) -> float:

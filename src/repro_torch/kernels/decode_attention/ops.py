@@ -9,11 +9,10 @@ last of them to finish merges their partial states, so a call is one launch.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counters, sm_count
 from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.decode_attention import ref
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
@@ -28,9 +27,6 @@ MHA_TILES = 4           # key tiles a group-1 block takes before a split
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-# per device: int32 zeros, one per (row, KV head, chunk of 16 query heads);
-# the kernel counts its finished splits there and leaves them zero again
-_COUNTERS = {}
 
 
 def _key_tile(group: int, hd: int, dtype: torch.dtype) -> int:
@@ -69,19 +65,6 @@ def _chunk(S: int, tile: int, nsplit: int) -> int:
     """Keys per chunk: the kernel's tiles shared out over ``nsplit``."""
     tiles = -(-S // tile)
     return -(-tiles // nsplit) * tile
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                              device=device)
-    return buf
 
 
 def _check(q, k, v, kv_len) -> None:
@@ -127,16 +110,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _, Hkv, S, _ = k.shape
     group = Hq // Hkv
     tile = _key_tile(group, hd, q.dtype)
-    index = q.device.index
-    nsplit = _num_splits(B, Hkv, group, S, _sm_count(
-        torch.cuda.current_device() if index is None else index), tile)
+    nsplit = _num_splits(B, Hkv, group, S, sm_count(q.device), tile)
     fn = _build.function("decode_attention", _ARGTYPES)
     out = torch.empty_like(q)
     ws = cnt = None
     if nsplit > 1:   # each split's (m, l) and f32 acc, and the counters
         ws = torch.empty(B * Hq * nsplit * (hd + 2), dtype=torch.float32,
                          device=q.device)
-        cnt = _counters(q.device, B * Hkv * -(-group // 16))
+        # one per (row, KV head, chunk of 16 query heads)
+        cnt = counters("decode_attention", q.device, B * Hkv * -(-group // 16))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
              out.data_ptr(), ws if ws is None else ws.data_ptr(),

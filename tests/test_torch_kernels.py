@@ -7,6 +7,8 @@ themselves run only on the card: ``chip_smoke.py`` holds them against these
 plain versions there.  The flash-attention cases are in
 ``test_torch_kernels_flash.py``.
 """
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -184,3 +186,24 @@ def test_import_builds_nothing_and_missing_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["decode_attention"])
     assert not (tmp_path / "build").exists()
+
+
+def test_an_edited_header_renames_every_target(monkeypatch, tmp_path):
+    """The build's target name hashes the source, every ``csrc/*.cuh`` and
+    the flags: a changed header's bytes give every source a new target, so
+    a library built against the old header is never reused."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = _build.sources()
+    before = {n: _build.target(n) for n in names}
+    assert before == {n: _build.target(n) for n in names}      # stable
+    assert len(set(before.values())) == len(names)
+    header = csrc / "hopper.cuh"
+    original = header.read_bytes()
+    header.write_bytes(original + b"// edited\n")
+    after = {n: _build.target(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    assert all(after[n].name.startswith(f"{n}-") for n in names)
+    header.write_bytes(original)
+    assert {n: _build.target(n) for n in names} == before

@@ -160,6 +160,63 @@ def test_bwd_wrapper_checks_its_inputs():
                                 lse, do)
 
 
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "tensor_cores"), (torch.bfloat16, 128, "tensor_cores"),
+    (torch.bfloat16, 16, "tensor_cores"), (torch.bfloat16, 36, "cuda_cores"),
+    (torch.float32, 64, "tensor_cores"), (torch.float32, 32, "tensor_cores"),
+    (torch.float32, 36, "tensor_cores"), (torch.float32, 30, "cuda_cores"),
+    (torch.float32, 128, "cuda_cores"), (torch.float32, 68, "cuda_cores"),
+])
+def test_route_by_dtype_and_head_dim(dtype, hd, want):
+    """bf16 rows that TMA can describe (hd % 8 == 0) go to wgmma, f32 rows
+    of whole 16-byte pieces (hd % 4 == 0) up to hd 64 to 3xTF32, the rest
+    to the CUDA cores."""
+    assert bwd.route(dtype, hd) == want
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((4, 16, 16, 512, 512, True, 0), (1, 1)),     # qwen's training step
+    ((2, 32, 16, 512, 512, True, 0), (1, 1)),     # 256 dK/dV blocks: whole
+    ((1, 64, 8, 512, 512, True, 0), (5, 1)),      # jamba's GQA 64/8
+    ((2, 16, 16, 128, 512, True, 384), (1, 5)),   # few queries, many keys
+    ((2, 4, 1, 64, 320, False, 0), (4, 5)),       # at most the walk's tiles
+    ((1, 16, 4, 96, 96, True, 0), (8, 2)),        # at most MAX_SPLITS
+    ((1, 2, 1, 1, 50, True, 49), (2, 1)),
+])
+def test_splits_only_where_a_grid_leaves_sms_idle(shape, want):
+    assert bwd.splits(*shape, sm_count=132) == want
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1, 1, 1, True, 0), (1, 1, 1, 64, 64, True, -100),
+    (3, 12, 4, 300, 700, False, 0), (1, 128, 1, 4096, 4096, True, 0),
+    (1, 4, 4, 10, 5000, True, 4990),
+])
+def test_splits_are_whole_and_bounded(shape):
+    B, Hq, Hkv, Sq, Sk, causal, off = shape
+    for sm in (1, 16, 132):
+        n_kv, n_q = bwd.splits(*shape, sm_count=sm)
+        for n, blocks in ((n_kv, B * Hkv * -(-Sk // 64)),
+                          (n_q, B * Hq * -(-Sq // 64))):
+            assert 1 <= n <= bwd.MAX_SPLITS
+            assert n == 1 or blocks < sm
+
+
+def test_bwd_route_choice_is_checked_before_the_device():
+    """``via`` picks a route that applies or raises, on any device; on CPU
+    tensors every route gives the plain version."""
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(1, 4, 2, 8, 8, 30))
+    lse = fref.attention_lse_ref(q, k)
+    args = (q, k, v, fref.attention_ref(q, k, v), lse, do)
+    want = fref.attention_bwd_ref(*args)
+    for via in (None, "cuda_cores"):
+        for g, w in zip(bwd.flash_attention_bwd(*args, via=via), want):
+            assert torch.equal(g, w)
+    for via in ("tensor_cores", "simt"):
+        with pytest.raises(ValueError, match="no route"):
+            bwd.flash_attention_bwd(*args, via=via)
+
+
 # ---------------------------------------------------------------------------
 # The grad guard of the forward-only kernels
 # ---------------------------------------------------------------------------
