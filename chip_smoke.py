@@ -21,7 +21,12 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    training shape in f32 and bf16 (its CUDA-core route timed beside the
    tensor cores), a GQA group of 2 at hd 128, a query offset, the ragged
    and small shapes of the CPU tests, jamba's attention and two head dims
-   only the CUDA cores take;
+   only the CUDA cores take; the WKV and selective scans' backwards (fed
+   the forward kernels' kept states) against their plain backwards and
+   autograd over their plain forwards, bit-equal to themselves and to the
+   autograd path, at rwkv6's training shape (f32 and bf16, both decay
+   extremes held to f64) and jamba's (u, B, C in bf16 and f32, a ragged
+   last checkpoint interval);
 3. serve 8 requests with the port's ``BatchedServer`` on qwen1.5-0.5b at
    full width (24 layers, d_model 1024, vocab 151,936, f32, random weights
    from a seed): every decode step must go through the decode kernel;
@@ -34,12 +39,22 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    width on the card and on the CPU from the same params and batch (loss,
    grad norm, params after the step), and the same step under remat "dots"
    and "full"; (b) qwen1.5-0.5b at full width and depth in f32, batch 4 x
-   512, 30 steps through ``launch/train.py``'s ``main`` with a checkpoint:
+   512, 20 steps through ``launch/train.py``'s ``main`` with a checkpoint:
    the loss must fall, every step runs the flash-attention kernel and its
    backward once per layer, one step is profiled; (b2) the same in bf16
    (``--dtype bfloat16``), two steps and one profiled, the loss finite;
-   (c) under grad mode, the forward-only kernels (the WKV and selective
-   scans, flash-decode) raise;
+   (c) rwkv6 and jamba smoke in f32: the loss and every gradient on the
+   card equal the CPU's, under remat "none", "dots" and "full", and
+   flash-decode still refuses grad mode; (c2) one train step of rwkv6-1.6b
+   cut to 2 layers at full width on the card and on the CPU, and the same
+   step under remat "dots" and "full", and (c3) jamba's Mamba mixer at full width, every gradient
+   within 2e-3 of the leaf's largest; (d) rwkv6-1.6b at full width and
+   depth in f32, batch 4 x 512, 20 steps through ``main`` (the WKV scan
+   and its backward once per layer a step; the loss must fall); (e)
+   jamba-1.5-large-398b cut to its first layer (``TRAIN_CARD``: Mamba
+   mixer and dense FFN at every published width) in bf16, batch 2 x 512,
+   20 steps (the selective scan and its backward once a step; the loss
+   finite and falling);
 6. serve the same traffic on rwkv6-1.6b at full width (24 layers, d_model
    2048, vocab 65,536, f32, random weights from a seed): every admission
    prefills its prompt through the WKV scan kernel, once per layer;
@@ -71,6 +86,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -107,6 +123,11 @@ K4_TOL = dict(atol=1e-3, rtol=0.0)
 # tests/test_kernels.py's tolerance for the selective scan (y and h), f32
 # arithmetic whatever the dtype of u, B, C
 K3_TOL = dict(atol=1e-3, rtol=0.0)
+# the scans' backwards: f32 gradients within K4_TOL's atol plus this share of
+# the gradient's largest value (tests/test_torch_train_recurrent.py's
+# emulation of K4's backward in f32 is up to 4.3e-6 of it off f64 at logw =
+# -1e-6, where the sums reach 1e3-1e4)
+SCAN_BWD_REL = 1e-5
 # full-width consistency checks: prefill = decode at 2e-3 for a model
 # computed in f32 (tests/test_models.py); the same function at another batch
 # (ragged = solo, 2-slot server = solo) at 1e-4, in f32 or bf16
@@ -589,6 +610,159 @@ def ssm_case(torch, sops, Bz, S, di, ds, dtype, gen, h0_random=True,
         **_bound(nbytes, flops, "float32"))
 
 
+def _grad_within(torch, got, want, dtype) -> float:
+    """Max abs error of a gradient against its yardstick: bf16 outputs to
+    TOL["bfloat16"] (their own rounding), f32 ones to atol 1e-3 plus 1e-5 of
+    the largest |want| (SCAN_BWD_REL: a gradient of a scan sums over every
+    later step, and at logw = -1e-6 nothing decays)."""
+    if dtype == torch.bfloat16:
+        return _within(torch, got, want, TOL["bfloat16"])
+    atol = K4_TOL["atol"] + SCAN_BWD_REL * want.float().abs().max().item()
+    return _within(torch, got, want, dict(atol=atol, rtol=0.0))
+
+
+def _bwd_checks(torch, got, want, auto, path, again, dtypes) -> tuple:
+    """(error against the plain backward, error against autograd over the
+    plain forward) of a scan's gradients, each held to ``_grad_within``;
+    the autograd path and a second call must give them bit for bit."""
+    err = max(_grad_within(torch, g, w, d) for g, w, d in
+              zip(got, want, dtypes))
+    err_auto = max(_grad_within(torch, g, w, d) for g, w, d in
+                   zip(got, auto, dtypes))
+    check(all(torch.equal(g, p) for g, p in zip(got, path)),
+          "the autograd path's gradients differ from the kernel's")
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          "two calls on the same inputs differ")
+    return err, err_auto
+
+
+def rwkv_bwd_case(torch, kops, kbops, N, S, hd, dtype, gen, logw_value=None,
+                  f64=False, profile=False):
+    """One check of the WKV-scan backward kernel + timings, inputs drawn as
+    ``rwkv_case``'s, with random gradients of out and of the final state.
+    The kernel, fed the forward kernel's states, is held to the plain
+    backward (or with ``f64`` to the same recurrence in f64, the f32 plain
+    version's distance from it reported as ``plain_err``) and to autograd
+    over the plain forward (in f64 too with ``f64``); the autograd path
+    (``rwkv6_scan`` under grad) and a second call must give its gradients
+    bit for bit.  No single PyTorch call computes WKV6's gradient."""
+    dt = getattr(torch, dtype)
+    r, k, v = (torch.randn(N, S, hd, device="cuda", generator=gen).to(dt)
+               for _ in range(3))
+    z = torch.randn(N, S, hd, device="cuda", generator=gen)
+    logw = torch.clamp(-torch.exp(0.5 * z - 1), -8.0, -1e-6) \
+        if logw_value is None else torch.full_like(z, logw_value)
+    u = 0.1 * torch.randn(N, hd, device="cuda", generator=gen)
+    s0 = 0.1 * torch.randn(N, hd, hd, device="cuda", generator=gen)
+    dout = torch.randn(N, S, hd, device="cuda", generator=gen)
+    dstate = torch.randn(N, hd, hd, device="cuda", generator=gen)
+    args = (r, k, v, logw, u, s0)
+    _, _, states = kops.rwkv6_scan_fwd(*args)
+
+    def kernel():
+        return kbops.rwkv6_scan_bwd(*args, dout, dstate, states=states)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = kbops.ref.rwkv6_scan_bwd_ref(*args, dout, dstate)
+    extra, cot = {}, (dout, dstate)
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    if f64:
+        exact = kbops.ref.rwkv6_scan_bwd_ref(
+            *(t.double() for t in args + cot))
+        extra["plain_err"] = max((w - e).abs().max().item()
+                                 for w, e in zip(want, exact))
+        want = exact
+        wide = [t.detach().double().requires_grad_() for t in args]
+        auto = torch.autograd.grad(kops.rwkv6_scan_ref(*wide), wide,
+                                   tuple(t.double() for t in cot))
+    else:
+        auto = torch.autograd.grad(kops.rwkv6_scan_ref(*leaves), leaves, cot)
+    path = torch.autograd.grad(kops.rwkv6_scan(*leaves), leaves, cot)
+    dtypes = (dt, dt, dt, torch.float32, torch.float32, torch.float32)
+    err, err_auto = _bwd_checks(torch, got, want, auto, path, kernel(), dtypes)
+    if profile:
+        extra["launch_us"] = launch_us(torch, kernel)
+    elem = r.element_size()
+    nc, hdp = kops.num_chunks(S), kops.padded_head_dim(hd)
+    # read r, k, v (their dtype), logw and dout (f32) once, the forward's
+    # entering states, u and dstate; write dr, dk, dv (r's dtype), dlogw, du
+    # and dstate0 (f32) once
+    nbytes = ((6 * elem + 12) * N * S * hd + 4 * N * nc * hdp * hdp
+              + 8 * N * hd + 8 * N * hd * hd)
+    # the sequential form: per (row, step) S_{t-1} recomputed, G updated,
+    # S_{t-1} dy, G v, k G and G o S_{t-1}: six FMAs per state element
+    flops = 12.0 * N * S * hd * hd
+    shape = f"N={N} S={S} hd={hd}" \
+        + (f" logw={logw_value:g}" if logw_value is not None else "") \
+        + (" (vs f64)" if f64 else "")
+    return dict(
+        shape=shape, dtype=dtype, max_abs_err=err, err_vs_autograd=err_auto,
+        **extra,
+        **_timings(torch, kernel,
+                   lambda: kbops.ref.rwkv6_scan_bwd_ref(*args, dout, dstate),
+                   None, plain_reps=(3, 1)),
+        **_bound(nbytes, flops, "float32"))
+
+
+def ssm_bwd_case(torch, sops, sbops, Bz, S, di, ds, dtype, gen,
+                 profile=False):
+    """One check of the selective-scan backward kernel + timings, inputs
+    drawn as ``ssm_case``'s (h0 random), with random gradients of y and of
+    the final state.  The kernel, fed the forward kernel's checkpoints, is
+    held to the plain backward and to autograd over the plain forward; the
+    autograd path (``ssm_scan`` under grad) and a second call must give its
+    gradients bit for bit.  No single PyTorch call computes a selective
+    scan's gradient."""
+    dt_ = getattr(torch, dtype)
+    u = torch.randn(Bz, S, di, device="cuda", generator=gen).to(dt_)
+    dt = torch.nn.functional.softplus(
+        torch.randn(Bz, S, di, device="cuda", generator=gen) - 1)
+    A = torch.log(torch.arange(1, ds + 1, dtype=torch.float32,
+                               device="cuda")).repeat(di, 1)
+    B = torch.randn(Bz, S, ds, device="cuda", generator=gen).to(dt_)
+    C = torch.randn(Bz, S, ds, device="cuda", generator=gen).to(dt_)
+    D = torch.randn(di, device="cuda", generator=gen)
+    h0 = 0.1 * torch.randn(Bz, di, ds, device="cuda", generator=gen)
+    dy = torch.randn(Bz, S, di, device="cuda", generator=gen)
+    dh = torch.randn(Bz, di, ds, device="cuda", generator=gen)
+    args = (u, dt, A, B, C, D, h0)
+    _, _, ckpt = sops.ssm_scan_fwd(*args)
+
+    def kernel():
+        return sbops.ssm_scan_bwd(*args, dy, dh, ckpt=ckpt)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = sbops.ref.ssm_scan_bwd_ref(*args, dy, dh)
+    leaves = [t.detach().clone().requires_grad_() for t in args]
+    auto = torch.autograd.grad(sops.ssm_scan_ref(*leaves), leaves, (dy, dh))
+    path = torch.autograd.grad(sops.ssm_scan(*leaves), leaves, (dy, dh))
+    f32 = torch.float32
+    dtypes = (dt_, f32, f32, dt_, dt_, f32, f32)
+    err, err_auto = _bwd_checks(torch, got, want, auto, path, kernel(), dtypes)
+    extra = {"launch_us": launch_us(torch, kernel)} if profile else {}
+    n, elem = Bz * S * di, u.element_size()
+    # what the gradient function reads and writes, once each: u, dt, dy read
+    # and du, ddt written per (row, step, channel); B, C, A_log, D, h0 and dh
+    # read and dB, dC, dA_log, dD and dh0 written.  The checkpoints are the
+    # design's own traffic, not the function's, and are reported apart.
+    nbytes = ((2 * elem + 12) * n + 4 * elem * Bz * S * ds
+              + 8 * di * (ds + 1) + 12 * Bz * di * ds)
+    ckpt_bytes = 4 * math.prod(sbops.checkpoint_shape(Bz, S, di, ds))
+    # per (row, step, channel, state) of the reverse recurrence: g += dy C,
+    # da, g da h_{t-1}, its dot with a and with B, dA, dB's and dC's terms,
+    # da g (15); per channel: du, ddt, dD (8)
+    flops = 15.0 * n * ds + 8.0 * n
+    return dict(
+        shape=f"Bz={Bz} S={S} di={di} ds={ds}", dtype=dtype, max_abs_err=err,
+        err_vs_autograd=err_auto, checkpoint_mb=ckpt_bytes / 1e6, **extra,
+        **_timings(torch, kernel,
+                   lambda: sbops.ref.ssm_scan_bwd_ref(*args, dy, dh), None,
+                   plain_reps=(3, 1)),
+        **_bound(nbytes, flops, "float32"))
+
+
 def _bound(nbytes: float, flops: float, dtype: str) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -605,14 +779,19 @@ def _print_row(name, row):
           f"{row['plain_wall_ms']:.4f} library_ms={lib} "
           + (f"library_causal_ms={row['library_causal_ms']:.4f} "
              if row.get("library_causal_ms") else "")
-          + (f"err_vs_autograd={row['err_vs_autograd']:.2e} lse_err="
-             f"{row['lse_err']:.2e} " if "err_vs_autograd" in row else "")
+          + (f"err_vs_autograd={row['err_vs_autograd']:.2e} "
+             if "err_vs_autograd" in row else "")
+          + (f"lse_err={row['lse_err']:.2e} " if "lse_err" in row else "")
           + (f"route={row['route']} ({row['rate']}) " if "route" in row
              else "")
           + (f"cuda_cores_ms={row['cuda_cores_ms']:.4f} cuda_cores_err="
              f"{row['cuda_cores_err']:.2e} " if "cuda_cores_ms" in row else "")
-          + (f"err_vs_plain={row['err_vs_plain']:.2e} plain_err="
-             f"{row['plain_err']:.2e} " if "plain_err" in row else "")
+          + (f"err_vs_plain={row['err_vs_plain']:.2e} "
+             if "err_vs_plain" in row else "")
+          + (f"checkpoint_mb={row['checkpoint_mb']:.1f} (not in the bound) "
+             if "checkpoint_mb" in row else "")
+          + (f"plain_err={row['plain_err']:.2e} " if "plain_err" in row
+             else "")
           + ("launch_us=" + ",".join(f"{k}:{v:.2f}" for k, v in
                                      row["launch_us"].items()) + " "
              if "launch_us" in row else "")
@@ -980,7 +1159,8 @@ def _leaf_errs(got, want):
 
 
 def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
-                            OptimizerConfig, pipeline, batch=2, seq=256):
+                            OptimizerConfig, pipeline, want, batch=2, seq=256,
+                            remat_modes=("dots", "full")):
     """One train step on the card and on the CPU from the same params and
     batch (f32).  The gradient of every leaf (``m`` after one step from zero
     moments is 0.1 times it) agrees to 2e-3 of the leaf's largest value
@@ -988,8 +1168,10 @@ def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
     card's params after the step equal the CPU's AdamW applied to the card's
     own gradient to 1e-6: comparing them with the CPU's step instead could
     not fail, since Adam's first step moves each element by about lr
-    whatever its gradient's size.  Then the same step under remat "dots" and
-    "full" on the card gives every leaf's gradient to 1e-5."""
+    whatever its gradient's size.  The card's step must launch the kernels
+    ``want`` names, each the given number of times, and no other.  Then the
+    same step under each of ``remat_modes`` on the card gives every leaf's
+    gradient to 1e-5."""
     opt_cfg = OptimizerConfig(lr=3e-4, warmup_steps=5, total_steps=30)
     cpu_params = api.init_params(torch.Generator().manual_seed(0), cfg)
     data = pipeline.SyntheticTokenPipeline(pipeline.DataConfig(
@@ -1014,12 +1196,9 @@ def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
                               plain_calls=sum(ops.ref.calls
                                               for ops in kernels.values()))
     gpu, cpu = results["cuda"], results["cpu"]
-    n = cfg.num_layers
-    check(gpu["launches"] == {name: (n if name.startswith("flash") else 0)
-                              for name in kernels}
+    check(gpu["launches"] == {name: want.get(name, 0) for name in kernels}
           and gpu["plain_calls"] == 0,
-          f"the card's train step launched {gpu['launches']}, want "
-          f"flash_attention and flash_attention_bwd {n} times each")
+          f"the card's train step launched {gpu['launches']}, want {want}")
     loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
     gn_rel = abs(gpu["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"]
     grad_errs = _leaf_errs(gpu["grads"], cpu["grads"])
@@ -1055,7 +1234,7 @@ def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
           "the card's gradient and the CPU's disagree")
     check(p_err <= 1e-6, "the card's AdamW step and the CPU's disagree")
     remat = {}
-    for mode in ("dots", "full"):
+    for mode in remat_modes:
         params = _to(torch, cpu_params, device)
         step = steps.make_train_step(cfg, opt_cfg, remat=mode)
         _, state, metrics = step(params, adamw.init_opt_state(
@@ -1076,10 +1255,11 @@ def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
                 adamw_err=p_err, card_s=gpu["s"], cpu_s=cpu["s"], remat=remat)
 
 
-def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
-                batch=4, seq=512, profile_at=10, dtype="float32",
-                converge=True):
-    """``launch/train.py``'s own ``main`` on the card (``--dtype dtype``):
+def phase_train(torch, np, cfg, kernels, steps, train, adamw, per_step,
+                n_steps=30, batch=4, seq=512, profile_at=10, dtype="float32",
+                converge=True, arch="qwen1.5-0.5b", model_cfg=None):
+    """``launch/train.py``'s own ``main`` on the card (``--arch arch --dtype
+    dtype``, with ``model_cfg`` passed as its config when given):
     ``n_steps`` steps of the synthetic pipeline, checkpointing into a
     temporary directory.  Each step is timed on the host clock, ending in a
     synchronise; step ``profile_at`` is profiled for its device kernel time
@@ -1087,7 +1267,8 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
     range of its own (its kernels' device time and count, and its span
     between two CUDA events).  The loss must be finite and, with
     ``converge``, fall by tests/test_system.py's criterion; every step must
-    run K2 and its backward once per layer and no other kernel."""
+    launch the kernels ``per_step`` names, each the given number of times,
+    and no other kernel of the port."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1132,20 +1313,18 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
         with tempfile.TemporaryDirectory() as ckpt_dir:
             reset_counts(kernels)
             t0 = time.perf_counter()
-            losses = train.main(["--arch", "qwen1.5-0.5b", "--steps",
+            losses = train.main(["--arch", arch, "--steps",
                                  str(n_steps), "--batch", str(batch),
                                  "--seq", str(seq), "--warmup", "5",
                                  "--dtype", dtype,
                                  "--ckpt-dir", ckpt_dir, "--ckpt-every",
-                                 "1000", "--log-every", "10"])
+                                 "1000", "--log-every", "10"], cfg=model_cfg)
             wall = time.perf_counter() - t0
             launches = launches_of(kernels)
             saved = sorted(os.listdir(ckpt_dir))
     finally:
         steps.make_train_step, adamw.adamw_update = make, update
-    n = cfg.num_layers
-    want = {name: (n * n_steps if name.startswith("flash") else 0)
-            for name in kernels}
+    want = {name: per_step.get(name, 0) * n_steps for name in kernels}
     check(launches == want and all(ops.ref.calls == 0
                                    for ops in kernels.values()),
           f"training launched {launches}, want {want}")
@@ -1161,32 +1340,29 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
     kern = prof_out.get("kernels", {})
     device_ms = sum(us for us, _ in kern.values()) / 1e3
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
-    # K2's forward and backward kernels in the profiled step: (ms, launches)
-    k2 = {stem: [0.0, 0] for stem in ("flash_attention",
-                                      "flash_attention_bwd")}
+    # the port's kernels of the path in the profiled step: (ms, launches)
+    port = {stem: [0.0, 0] for stem, calls in per_step.items() if calls}
     for name, (us, count) in kern.items():
         m = re.match(r"void \(anonymous namespace\)::(\w+)[<(]", name)
         stem = KERNEL_SOURCE.get(m[1]) if m else None
-        if stem in k2:
-            k2[stem][0] += us / 1e3
-            k2[stem][1] += count
+        if stem in port:
+            port[stem][0] += us / 1e3
+            port[stem][1] += count
     tok_s = batch * seq / (step_ms / 1e3)
     print(f"trained {n_steps} steps of B={batch} x S={seq} in {dtype} in "
           f"{wall:.1f} s (checkpoint included); loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f} (first five {first5:.4f}, last five "
           f"{last5:.4f}); step "
           f"{step_ms:.1f} ms median host wall (first {times[0] * 1e3:.1f} "
-          f"ms), {tok_s:.0f} tokens/s; K2 {launches['flash_attention'] / n_steps:.0f} "
-          f"forward and {launches['flash_attention_bwd'] / n_steps:.0f} "
-          "backward launches a step", flush=True)
+          f"ms), {tok_s:.0f} tokens/s; calls a step: "
+          + ", ".join(f"{name} {launches[name] / n_steps:.0f}"
+                      for name in port), flush=True)
     if device_ms > 0:
         print(f"profiled step {profile_at}: {device_ms:.2f} ms device kernel "
               f"time against {step_ms:.1f} ms a step: device idle "
-              f"{1 - device_ms / step_ms:.1%}; K2 forward "
-              f"{k2['flash_attention'][0]:.3f} ms in "
-              f"{k2['flash_attention'][1]} launches, backward "
-              f"{k2['flash_attention_bwd'][0]:.3f} ms in "
-              f"{k2['flash_attention_bwd'][1]} launches (3 a call)")
+              f"{1 - device_ms / step_ms:.1%}; "
+              + ", ".join(f"{stem} {ms:.3f} ms in {count} launches"
+                          for stem, (ms, count) in port.items()))
         for name, (us, count) in top:
             print(f"  {us / 1e3:8.3f} ms {count:5d}x  {name[:90]}")
     else:
@@ -1214,7 +1390,7 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
                 launches_per_step={k: v / n_steps for k, v in launches.items()},
                 device_ms=device_ms or None,
                 idle=(1 - device_ms / step_ms) if device_ms else None,
-                k2_device_ms=k2,
+                kernel_device_ms=port,
                 top=[(name, us / 1e3, count) for name, (us, count) in top],
                 optimizer=dict(device_ms=opt_ms or None,
                                launches=opt_launches or None,
@@ -1222,42 +1398,144 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, n_steps=30,
                                bound_ms=opt_bound))
 
 
-def phase_grad_guard(torch, device, api, get_arch, dops):
-    """Under grad mode, a forward whose kernel has no backward yet raises the
-    grad guard's error on the card: rwkv6 smoke (K4), jamba smoke (K3), and
-    K1 called with a query that requires grad."""
-    seen = {}
-    for arch, kernel in (("rwkv6-1.6b", "rwkv6_scan"),
-                         ("jamba-1.5-large-398b", "ssm_scan")):
+def _loss_and_grads(torch, api, adamw, cfg, params, batch, remat="none"):
+    """(loss, {path: gradient}) of ``api.loss_fn`` through detached aliases
+    of the param leaves, as the train step takes them."""
+    named = adamw.named_leaves(params)
+    alias = {path: t.detach().requires_grad_() for path, t in named}
+    with torch.enable_grad():
+        loss, _ = api.loss_fn(adamw.tree_like(params, alias), cfg, batch,
+                              remat=remat)
+        grads = torch.autograd.grad(loss, [alias[p] for p, _ in named])
+    return float(loss.detach()), {p: g for (p, _), g in zip(named, grads)}
+
+
+def phase_grad_check(torch, device, api, adamw, get_arch, pipeline, kernels,
+                     dops, batch=2, seq=70):
+    """The recurrent models' gradients on the card: rwkv6 smoke (K4 and its
+    backward) and jamba smoke (K3 and its backward, K2 and its backward) in
+    f32, from the same params and batch as on the CPU, give the loss and
+    every leaf's gradient within tests/test_torch_train.py's TOL (atol and
+    rtol 2e-3); S = 70 leaves a ragged last chunk for both scans.  So they
+    do under each remat mode, where the backward reruns each layer's
+    forward (its kernels twice a step) and the scans' autograd Functions
+    keep their checkpoints only through the rerun.  Then K1, whose decode
+    needs no backward, still refuses grad mode."""
+    out = {}
+    for arch in ("rwkv6-1.6b", "jamba-1.5-large-398b"):
         cfg = dataclasses.replace(get_arch(arch).smoke, param_dtype="float32",
                                   compute_dtype="float32")
-        params = api.init_params(torch.Generator(device=device).manual_seed(0),
-                                 cfg)
-        for leaf in _leaves(params):
-            leaf.requires_grad_()
-        tokens = torch.zeros((1, 8), dtype=torch.int64, device=device)
-        try:
-            api.forward(params, cfg, {"tokens": tokens}, remat="none")
-        except RuntimeError as e:
-            seen[kernel] = str(e)
-        check(f"{kernel}: the backward of this CUDA kernel is not ported yet"
-              in seen.get(kernel, ""), f"{arch} forward under grad did not "
-              f"raise the {kernel} grad guard: {seen.get(kernel)}")
+        params = api.init_params(torch.Generator().manual_seed(0), cfg)
+        data = pipeline.SyntheticTokenPipeline(pipeline.DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
+        tokens = torch.from_numpy(data.batch_at(0)["tokens"])
+        cpu_loss, cpu_grads = _loss_and_grads(torch, api, adamw, cfg, params,
+                                              {"tokens": tokens})
+        kinds = cfg.layer_kinds()
+        n_ssm, n_attn = kinds.count("ssm"), kinds.count("attn")
+        n_rwkv = cfg.num_layers if cfg.rwkv is not None else 0
+        card_params = _to(torch, params, device)
+        out[cfg.name] = {}
+        for remat in ("none", "dots", "full"):
+            reset_counts(kernels)
+            loss, grads = _loss_and_grads(
+                torch, api, adamw, cfg, card_params,
+                {"tokens": tokens.to(device)}, remat=remat)
+            launches = launches_of(kernels)
+            fwd = 1 if remat == "none" else 2
+            want = {"rwkv6_scan": fwd * n_rwkv, "rwkv6_scan_bwd": n_rwkv,
+                    "ssm_scan": fwd * n_ssm, "ssm_scan_bwd": n_ssm,
+                    "flash_attention": fwd * n_attn,
+                    "flash_attention_bwd": n_attn}
+            check(launches == {name: want.get(name, 0) for name in kernels}
+                  and all(ops.ref.calls == 0 for ops in kernels.values()),
+                  f"{cfg.name}'s gradient (remat {remat!r}) launched "
+                  f"{launches}, want {want}")
+            worst, worst_path = 0.0, None
+            for path, want_g in cpu_grads.items():
+                err, bad = _excess(torch, grads[path].cpu(), want_g,
+                                   dict(atol=2e-3, rtol=2e-3))
+                check(not bad, f"{cfg.name}: gradient of {path} (remat "
+                      f"{remat!r}) off the CPU's by {err} (atol 2e-3, rtol "
+                      "2e-3)")
+                if err >= worst:
+                    worst, worst_path = err, path
+            check(abs(loss - cpu_loss) <= 2e-3 + 2e-3 * abs(cpu_loss),
+                  f"{cfg.name}: loss {loss} on the card (remat {remat!r}), "
+                  f"{cpu_loss} on the CPU")
+            print(f"  {cfg.name} B={batch} S={seq} remat {remat!r}: loss card "
+                  f"{loss!r} / CPU {cpu_loss!r}; {len(grads)} leaves, worst "
+                  f"|card - CPU| {worst:.3e} ({worst_path}); launches "
+                  f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+            out[cfg.name][remat] = dict(loss=(loss, cpu_loss), worst_err=worst,
+                                        worst_leaf=worst_path,
+                                        launches=launches)
     q = torch.randn(1, 2, 16, device=device, requires_grad=True)
     kv = torch.randn(1, 2, 8, 16, device=device)
+    msg = ""
     try:
         dops.decode_attention(q, kv, kv, torch.tensor(
             [8], dtype=torch.int32, device=device))
     except RuntimeError as e:
-        seen["decode_attention"] = str(e)
-    check("decode_attention: the backward" in seen.get("decode_attention", ""),
+        msg = str(e)
+    check("decode_attention: the backward" in msg,
           "decode_attention under grad did not raise the grad guard")
     with torch.no_grad():     # the guard lets no-grad callers through
         dops.decode_attention(q, kv, kv, torch.tensor(
             [8], dtype=torch.int32, device=device))
-    for kernel, msg in seen.items():
-        print(f"  {kernel}: raised under grad: {msg[:100]}...")
-    return seen
+    print(f"  decode_attention: raised under grad: {msg[:100]}...")
+    out["decode_attention_refused"] = msg
+    return out
+
+
+def phase_mixer_vs_cpu(torch, cfg, device, kernels, adamw, batch=1,
+                       seq=128):
+    """jamba's Mamba mixer at full width (``apply_ssm`` of ``cfg``, f32) on
+    the card and on the CPU from the same params, input and output
+    gradient: every param's gradient and the input's agree to 2e-3 of the
+    leaf's largest value (tests/test_models.py's bound).  The card runs K3
+    and its backward once each."""
+    from repro_torch.models import ssm
+
+    params = ssm.init_ssm(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(batch, seq, cfg.d_model, generator=gen)
+    cot = torch.randn(batch, seq, cfg.d_model, generator=gen)
+    grads, secs = {}, {}
+    for where in ("cuda", "cpu"):
+        dev = device if where == "cuda" else torch.device("cpu")
+        here = _to(torch, params, dev)
+        alias = {path: t.requires_grad_()
+                 for path, t in adamw.named_leaves(here)}
+        tree = adamw.tree_like(here, alias)
+        xin = x.to(dev).requires_grad_()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            y, _ = ssm.apply_ssm(tree, xin, cfg, mode="train")
+            gs = torch.autograd.grad(y, list(alias.values()) + [xin],
+                                     cot.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launches = launches_of(kernels)
+            want = {"ssm_scan": 1, "ssm_scan_bwd": 1}
+            check(launches == {name: want.get(name, 0) for name in kernels}
+                  and all(ops.ref.calls == 0 for ops in kernels.values()),
+                  f"the mixer's gradient launched {launches}, want {want}")
+        secs[where] = time.perf_counter() - t0
+        grads[where] = dict(zip(list(alias) + ["x"], gs))
+    errs = _leaf_errs(grads["cuda"], grads["cpu"])
+    worst = max(errs, key=errs.get)
+    print(f"  Mamba mixer d_model {cfg.d_model} d_inner "
+          f"{cfg.ssm.expand * cfg.d_model} B={batch} S={seq}: gradient leaf by "
+          f"leaf, max |card - CPU| / max |CPU|: worst {worst} "
+          f"{errs[worst]:.3e}; card {secs['cuda']:.2f} s (first call), CPU "
+          f"{secs['cpu']:.2f} s", flush=True)
+    for path, err in sorted(errs.items(), key=lambda kv: -kv[1]):
+        print(f"  grad {path}: {err:.3e}")
+    check(errs[worst] <= 2e-3, "the mixer's gradients on the card and the "
+          "CPU disagree")
+    return dict(grad_errs=errs, card_s=secs["cuda"], cpu_s=secs["cpu"])
 
 
 def main(argv=None) -> int:
@@ -1284,7 +1562,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import bwd as bops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rwkv6_scan import bwd as kbops
     from repro_torch.kernels.rwkv6_scan import ops as kops
+    from repro_torch.kernels.ssm_scan import bwd as sbops
     from repro_torch.kernels.ssm_scan import ops as sops
     from repro_torch.launch import serve, steps, train
     from repro_torch.models import api
@@ -1292,7 +1572,8 @@ def main(argv=None) -> int:
 
     kernels = {"decode_attention": dops, "flash_attention": fops,
                "flash_attention_bwd": bops, "ssm_scan": sops,
-               "rwkv6_scan": kops}
+               "rwkv6_scan": kops, "ssm_scan_bwd": sbops,
+               "rwkv6_scan_bwd": kbops}
     t_start = time.perf_counter()
     # ---- 1. build and device -------------------------------------------
     print("== 1. build and device", flush=True)
@@ -1440,6 +1721,29 @@ def main(argv=None) -> int:
             rows["decode_attention"].append(decode_case(
                 torch, F, dops, 4, Hq, 8, 512, 128, [17, 130, 256, 511],
                 dtype, gen))
+    # the scans' backwards.  K4 at rwkv6-1.6b's training shape (B 4 x 32
+    # heads of 64, S 512) in f32 and bf16, and at both decay extremes held
+    # to the f64 recurrence; a ragged last chunk with hd 30, hd 128 and a
+    # small bf16 case.  K3 at jamba's training shape (Bz 2, S 512, d_inner
+    # 16384, d_state 16) with u, B, C in bf16 and in f32, an S that is not
+    # a multiple of the checkpoint interval (131), and d_state 8 over 100
+    # channels (a ragged block of channels)
+    for case in ((128, 512, 64, "float32"), (128, 512, 64, "bfloat16"),
+                 (3, 45, 30, "float32"), (4, 100, 128, "float32"),
+                 (6, 33, 16, "bfloat16")):
+        rows["rwkv6_scan_bwd"].append(rwkv_bwd_case(
+            torch, kops, kbops, *case[:3], case[3], gen,
+            profile=case[0] == 128))
+    for lw in (-8.0, -1e-6):
+        rows["rwkv6_scan_bwd"].append(rwkv_bwd_case(
+            torch, kops, kbops, 128, 512, 64, "float32", gen, logw_value=lw,
+            f64=True))
+    for case in ((2, 512, 16384, 16, "bfloat16"), (2, 512, 16384, 16,
+                                                   "float32"),
+                 (2, 131, 16384, 16, "bfloat16"), (1, 37, 100, 8, "float32")):
+        rows["ssm_scan_bwd"].append(ssm_bwd_case(
+            torch, sops, sbops, *case[:4], case[4], gen,
+            profile=case[:2] == (2, 512)))
     for name, rs in rows.items():
         for row in rs:
             _print_row(name, row)
@@ -1451,6 +1755,8 @@ def main(argv=None) -> int:
         "ssm_scan": jamba_ssm[256],                 # Bz=1 S=256 prefill
         "rwkv6_scan": rows["rwkv6_scan"][2],        # f32 N=32 S=256
         "flash_attention_bwd": rows["flash_attention_bwd"][0],  # training
+        "rwkv6_scan_bwd": rows["rwkv6_scan_bwd"][0],     # f32 N=128 S=512
+        "ssm_scan_bwd": rows["ssm_scan_bwd"][0],         # bf16 Bz=2 S=512
     }
     _print_row("decode (main)", main_rows["decode_attention"])
 
@@ -1468,8 +1774,8 @@ def main(argv=None) -> int:
           f"decode kernel launched {n['decode_attention']} times for "
           f"{served['decode_calls']} decode calls of {cfg.num_layers} layers")
     check(n["decode_attention"] > 0, "decode kernel never launched")
-    check(n["flash_attention"] == n["flash_attention_bwd"] == n["rwkv6_scan"]
-          == n["ssm_scan"] == 0,
+    check(all(calls == 0 for name, calls in n.items()
+              if name != "decode_attention"),
           f"serving {cfg.name} launched another kernel: {n}")
     prof = phase_profile(torch, cfg, params, device, steps, api)
     print("== 4. ragged batch equals solo decode at full width", flush=True)
@@ -1484,26 +1790,64 @@ def main(argv=None) -> int:
     # ---- training: qwen1.5-0.5b through K2 and its backward --------------
     print(f"== train (a). one step of {cfg.name} cut to 2 layers at full "
           "width, on the card and on the CPU from the same params", flush=True)
+    k2 = {"flash_attention": 1, "flash_attention_bwd": 1}   # a layer
     step_vs_cpu = phase_train_step_vs_cpu(
         torch, dataclasses.replace(cfg, num_layers=2), device, kernels, steps,
-        api, adamw, OptimizerConfig, pipeline)
+        api, adamw, OptimizerConfig, pipeline,
+        {name: 2 * calls for name, calls in k2.items()})
     print(f"== train (b). {cfg.name} at full width and depth, f32, through "
           "launch/train.py's main", flush=True)
-    trained = phase_train(torch, np, cfg, kernels, steps, train, adamw)
+    per_layer = {name: cfg.num_layers * calls for name, calls in k2.items()}
+    trained = phase_train(torch, np, cfg, kernels, steps, train, adamw,
+                          per_layer, n_steps=20)
     print(f"== train (b2). {cfg.name} at full width and depth in bf16 "
           "(--dtype bfloat16): two steps, then one profiled", flush=True)
     trained_bf16 = phase_train(torch, np, cfg, kernels, steps, train, adamw,
-                               n_steps=3, profile_at=2, dtype="bfloat16",
-                               converge=False)
-    print("== train (c). forward-only kernels refuse grad mode on the card",
+                               per_layer, n_steps=3, profile_at=2,
+                               dtype="bfloat16", converge=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("== train (c). rwkv6 and jamba smoke: every gradient on the card "
+          "against the CPU's (f32), under each remat mode; flash-decode "
+          "refuses grad mode",
           flush=True)
-    guard = phase_grad_guard(torch, device, api, get_arch, dops)
+    grad_check = phase_grad_check(torch, device, api, adamw, get_arch,
+                                  pipeline, kernels, dops)
+    rcfg = dataclasses.replace(get_arch("rwkv6-1.6b").model,
+                               param_dtype="float32", compute_dtype="float32")
+    print(f"== train (c2). one step of {rcfg.name} cut to 2 layers at full "
+          "width, on the card and on the CPU from the same params", flush=True)
+    step_vs_cpu_r = phase_train_step_vs_cpu(
+        torch, dataclasses.replace(rcfg, num_layers=2), device, kernels,
+        steps, api, adamw, OptimizerConfig, pipeline,
+        {"rwkv6_scan": 2, "rwkv6_scan_bwd": 2})
+    from repro_torch.configs.jamba_1_5_large_398b import TRAIN_CARD
+    print("== train (c3). jamba's Mamba mixer at full width (TRAIN_CARD's "
+          "layer 0, f32), on the card and on the CPU", flush=True)
+    mixer_vs_cpu = phase_mixer_vs_cpu(torch, dataclasses.replace(
+        TRAIN_CARD, param_dtype="float32", compute_dtype="float32"), device,
+        kernels, adamw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"== train (d). {rcfg.name} at full width and depth, f32, through "
+          "launch/train.py's main", flush=True)
+    trained_r = phase_train(
+        torch, np, rcfg, kernels, steps, train, adamw,
+        {"rwkv6_scan": rcfg.num_layers, "rwkv6_scan_bwd": rcfg.num_layers},
+        n_steps=20, arch="rwkv6-1.6b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"== train (e). {TRAIN_CARD.name} cut to {TRAIN_CARD.num_layers} "
+          "layer (TRAIN_CARD: Mamba mixer and dense FFN at full width), bf16, "
+          "through launch/train.py's main", flush=True)
+    trained_j = phase_train(
+        torch, np, TRAIN_CARD, kernels, steps, train, adamw,
+        {"ssm_scan": 1, "ssm_scan_bwd": 1}, n_steps=20, batch=2,
+        dtype="bfloat16", arch="jamba-1.5-large-398b", model_cfg=TRAIN_CARD)
     gc.collect()
     torch.cuda.empty_cache()
 
     # ---- 6-7. rwkv6-1.6b at full width -----------------------------------
-    rcfg = dataclasses.replace(get_arch("rwkv6-1.6b").model,
-                               param_dtype="float32", compute_dtype="float32")
     rparams = api.init_params(torch.Generator(device=device).manual_seed(0),
                               rcfg)
     n_params = sum(t.numel() for t in _leaves(rparams))
@@ -1515,8 +1859,7 @@ def main(argv=None) -> int:
     want = rcfg.num_layers * 8
     check(n["rwkv6_scan"] == want, f"rwkv6_scan launched {n['rwkv6_scan']} "
           f"times, want {rcfg.num_layers} layers x 8 admissions = {want}")
-    check(n["decode_attention"] == n["flash_attention"]
-          == n["flash_attention_bwd"] == n["ssm_scan"] == 0,
+    check(all(calls == 0 for name, calls in n.items() if name != "rwkv6_scan"),
           f"serving {rcfg.name} launched another kernel: {n}")
     prof_r = phase_profile(torch, rcfg, rparams, device, steps, api)
     print("== 7a. prefill 2 x 256 tokens through rwkv6_scan", flush=True)
@@ -1553,8 +1896,8 @@ def main(argv=None) -> int:
     n, calls = served_j["launches"], served_j["decode_calls"]
     want = {"ssm_scan": n_ssm * (8 + calls),
             "decode_attention": n_attn * calls,
-            "flash_attention": n_attn * 8, "rwkv6_scan": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention": n_attn * 8}
+    want = {name: want.get(name, 0) for name in kernels}
     check(n == want, f"serving {jcfg.name} launched {n}, want {want} "
           f"({n_ssm} Mamba and {n_attn} attention layers, 8 admissions, "
           f"{calls} decode calls)")
@@ -1586,7 +1929,9 @@ def main(argv=None) -> int:
                 "ssm_scan": served_j["launches"]["ssm_scan"],
                 "rwkv6_scan": served_r["launches"]["rwkv6_scan"],
                 "flash_attention_bwd":
-                    trained["launches"]["flash_attention_bwd"]}
+                    trained["launches"]["flash_attention_bwd"],
+                "rwkv6_scan_bwd": trained_r["launches"]["rwkv6_scan_bwd"],
+                "ssm_scan_bwd": trained_j["launches"]["ssm_scan_bwd"]}
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
     source = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                    "src/repro/kernels/decode_attention/kernel.py:64"),
@@ -1596,10 +1941,15 @@ def main(argv=None) -> int:
                            "src/repro/kernels/ssm_scan/kernel.py:61"),
               "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
                              "src/repro/kernels/rwkv6_scan/kernel.py:73"),
-              # a new kernel: the TPU kernel it differentiates is forward-only
+              # new kernels: the TPU kernels they differentiate are
+              # forward-only
               "flash_attention_bwd": (
                   "src/repro_torch/csrc/flash_attention_bwd.cu",
-                  "src/repro/kernels/flash_attention/kernel.py:71")}
+                  "src/repro/kernels/flash_attention/kernel.py:71"),
+              "rwkv6_scan_bwd": ("src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+                                 "src/repro/kernels/rwkv6_scan/kernel.py:73"),
+              "ssm_scan_bwd": ("src/repro_torch/csrc/ssm_scan_bwd.cu",
+                               "src/repro/kernels/ssm_scan/kernel.py:61")}
     kernel_rows = []
     for name, row in main_rows.items():
         kernel_rows.append({
@@ -1619,7 +1969,9 @@ def main(argv=None) -> int:
              "ragged_err": ragged_err, "prefill": pre,
              "train_step_vs_cpu": step_vs_cpu, "train": trained,
              "train_bf16": trained_bf16,
-             "grad_guard": guard,
+             "grad_check": grad_check, "train_step_vs_cpu_rwkv": step_vs_cpu_r,
+             "mixer_vs_cpu": mixer_vs_cpu, "train_rwkv": trained_r,
+             "train_jamba": trained_j,
              "serve_rwkv": served_r, "profile_rwkv": prof_r,
              "prefill_rwkv": pre_r, "server_solo_err_rwkv": solo_err,
              "jamba": {"params": n_params, "gbytes": gbytes, "init_s": init_s,

@@ -15,6 +15,13 @@ every published width: 16 experts top-2 of d_ff 24576, GQA 64/8 heads of
 128, d_state 16, d_conv 4, expand 2, vocab 65536.  What is lost is the
 Mamba:attention ratio, 4:1 in ``CARD`` against the published 7:1, and the
 depth.
+
+``TRAIN_CARD`` is the configuration trained on one 80 GB card: ``FULL`` cut
+to its first layer (a Mamba mixer and a dense SwiGLU FFN) at every
+published width, not registered.  Its weights come to about 2.1 B
+parameters: embedding and untied head 1.07 B, the Mamba mixer 420 M, the
+dense FFN 604 M; in bf16 with AdamW's f32 moments about 25 GB.  Layer 1 is
+an MoE layer of 9.66 B, so two layers do not train on one card.
 """
 from dataclasses import replace
 
@@ -55,6 +62,8 @@ SMOKE = ModelConfig(
 
 # the first 5 layers at full width, bf16: what one 80 GB card holds
 CARD = replace(FULL, num_layers=5)
+# the first layer at full width, bf16: what one 80 GB card trains
+TRAIN_CARD = replace(FULL, num_layers=1)
 
 
 @register_arch("jamba-1.5-large-398b")

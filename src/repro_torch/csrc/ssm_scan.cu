@@ -50,15 +50,21 @@
 //    few registers, so the grid's state loads are all in flight at once;
 //  * h_out may be h0: each lane reads its own states before it writes them;
 //  * a = -exp(A_log) is pre-scaled by log2 e, so each exp is one ex2; all
-//    arithmetic is in f32, as in the reference.
+//    arithmetic is in f32, as in the reference;
+//  * under grad mode the caller passes ckpt, and each tile's entering state
+//    (16 bytes a lane, coalesced, like h_out) is written there for the
+//    backward (csrc/ssm_scan_bwd.cu); serving passes null and writes no
+//    more than before.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ssm_checkpoint.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTile = 16;                    // time steps a tile of a prompt
+constexpr int kTile = kSsmCheckpoint;        // time steps a tile of a prompt
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -182,7 +188,9 @@ __device__ __forceinline__ void run_tile(const T (*s_u)[CPB], const float (*s_dt
 
 // u: (Bz, S, di) of T; dt: (Bz, S, di) f32; A_log: (di, DS) f32; Bm, Cm:
 // (Bz, S, DS) of T; Dv: (di,) f32; h0, h_out: (Bz, di, DS) f32 (h_out may
-// be h0); y: (Bz, S, di) f32; all contiguous.  Grid (ceil(di / CPB), Bz)
+// be h0); y: (Bz, S, di) f32; ckpt: null, or (Bz, ceil(S / kTile), di, DS)
+// f32 that gets the state entering each tile (the backward's checkpoints);
+// all contiguous.  Grid (ceil(di / CPB), Bz)
 // with CPB = kThreads / (DS / 4) channels a block.  vec: bit 0 u, bit 1 dt
 // rows 16-byte aligned.
 template <typename T, int DS>
@@ -190,7 +198,8 @@ __global__ void __launch_bounds__(kThreads, 4)
 ssm_kernel(const T* __restrict__ u, const float* __restrict__ dt,
            const float* __restrict__ A_log, const T* __restrict__ Bm,
            const T* __restrict__ Cm, const float* __restrict__ Dv,
-           const float* h0, float* __restrict__ y, float* h_out, int S, int di, int vec) {
+           const float* h0, float* __restrict__ y, float* h_out, float* __restrict__ ckpt,
+           int S, int di, int vec) {
   constexpr int LPC = DS / 4;                // lanes a channel
   constexpr int CPB = kThreads / LPC;        // channels a block
   constexpr int kStages = 3;                 // tiles of u, dt in flight or in use
@@ -231,6 +240,10 @@ ssm_kernel(const T* __restrict__ u, const float* __restrict__ dt,
 
   for (int tile = 0; tile < ntiles; ++tile) {
     const int t0 = tile * kTile, tn = min(kTile, S - t0), buf = tile & 1, st = tile % kStages;
+    // the state entering the tile, kept for the backward (grad mode only)
+    if (ckpt != nullptr && ok)
+      *reinterpret_cast<float4*>(ckpt + (((size_t)blockIdx.y * ntiles + tile) * di + dc) * DS +
+                                 4 * q) = h;
     asm volatile("cp.async.wait_group 1;");  // this tile's u, dt are here
     __syncthreads();                         // for every thread; the last tile is done
     issue(tile + 2);                         // into the stage the last tile used
@@ -292,11 +305,11 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 template <typename T, int DS>
 cudaError_t launch(const void* u, const void* dt, const void* A_log,
                    const void* Bm, const void* Cm, const void* Dv,
-                   const void* h0, void* y, void* h_out, int Bz, int S,
+                   const void* h0, void* y, void* h_out, void* ckpt, int Bz, int S,
                    int di, cudaStream_t stream) {
   constexpr int CPB = kThreads / (DS / 4);
   const dim3 grid((di + CPB - 1) / CPB, Bz);
-  if (S == 1) {
+  if (S == 1 && ckpt == nullptr) {
     ssm_step_kernel<T, DS><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(u), static_cast<const float*>(dt),
         static_cast<const float*>(A_log), static_cast<const T*>(Bm),
@@ -312,19 +325,19 @@ cudaError_t launch(const void* u, const void* dt, const void* A_log,
       static_cast<const float*>(A_log), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(Dv),
       static_cast<const float*>(h0), static_cast<float*>(y),
-      static_cast<float*>(h_out), S, di, vec);
+      static_cast<float*>(h_out), static_cast<float*>(ckpt), S, di, vec);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_ds(const void* u, const void* dt, const void* A_log,
                       const void* Bm, const void* Cm, const void* Dv,
-                      const void* h0, void* y, void* h_out, int Bz, int S,
+                      const void* h0, void* y, void* h_out, void* ckpt, int Bz, int S,
                       int di, int ds, cudaStream_t stream) {
   if (ds == 8)
-    return launch<T, 8>(u, dt, A_log, Bm, Cm, Dv, h0, y, h_out, Bz, S, di, stream);
+    return launch<T, 8>(u, dt, A_log, Bm, Cm, Dv, h0, y, h_out, ckpt, Bz, S, di, stream);
   if (ds == 16)
-    return launch<T, 16>(u, dt, A_log, Bm, Cm, Dv, h0, y, h_out, Bz, S, di, stream);
+    return launch<T, 16>(u, dt, A_log, Bm, Cm, Dv, h0, y, h_out, ckpt, Bz, S, di, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -332,19 +345,25 @@ cudaError_t launch_ds(const void* u, const void* dt, const void* A_log,
 
 // u, B, C: dtype 0 = float32, 1 = bfloat16; u: (Bz, S, di); B, C: (Bz, S,
 // ds); dt: (Bz, S, di) f32; A_log: (di, ds) f32; D: (di,) f32; h0, h_out:
-// (Bz, di, ds) f32, h_out = h0 allowed; y: (Bz, S, di) f32; ds 8 or 16; all
-// contiguous and 16-byte aligned on the device.  Returns the launch's
-// cudaError_t (0 when it was accepted).
+// (Bz, di, ds) f32, h_out = h0 allowed; y: (Bz, S, di) f32; ckpt: null
+// (serving: nothing more is written), or (Bz, ceil(S / kTile), di, ds) f32
+// for the state entering every kTile-th step (grad mode: the backward's
+// checkpoints; S = 1 then runs ssm_kernel); ckpt_steps: the caller's
+// interval between checkpoints, which must be kTile when ckpt is given; ds
+// 8 or 16; all contiguous and 16-byte aligned on the device.  Returns the
+// launch's cudaError_t (0 when it was accepted).
 extern "C" int ssm_scan(const void* u, const void* dt, const void* A_log,
                         const void* B, const void* C, const void* D,
-                        const void* h0, void* y, void* h_out, int Bz, int S,
-                        int di, int ds, int dtype, void* stream) {
+                        const void* h0, void* y, void* h_out, void* ckpt, int Bz,
+                        int S, int di, int ds, int dtype, int ckpt_steps, void* stream) {
   if (Bz <= 0 || Bz > 65535 || S <= 0 || di <= 0) return cudaErrorInvalidValue;
+  if (ckpt != nullptr && ckpt_steps != kTile) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_ds<float>(u, dt, A_log, B, C, D, h0, y, h_out, Bz, S, di, ds, st);
+    return launch_ds<float>(u, dt, A_log, B, C, D, h0, y, h_out, ckpt, Bz, S, di, ds, st);
   if (dtype == 1)
-    return launch_ds<__nv_bfloat16>(u, dt, A_log, B, C, D, h0, y, h_out, Bz, S, di, ds, st);
+    return launch_ds<__nv_bfloat16>(u, dt, A_log, B, C, D, h0, y, h_out, ckpt, Bz, S, di, ds,
+                                    st);
   return cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version (``ref.py``) and its wrapper (``ops.py``).
+version (``ref.py``) and its wrapper (``ops.py``; a backward's in
+``bwd.py``).
 
-Every wrapper counts its kernel's launches in ``ops.launches``; every plain
-version counts its calls in ``ref.calls``.
+Every wrapper counts its kernel's launches in ``ops.launches`` (a
+backward's in ``bwd.launches``); every plain version counts its calls in
+``ref.calls``.
 """
 
 from __future__ import annotations

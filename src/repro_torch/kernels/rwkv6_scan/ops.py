@@ -9,6 +9,13 @@ Hopper kernel, like the TPU kernel's default, takes chunks of ``CHUNK`` = 32
 steps.  A call on the card is three launches (each chunk's own state
 contribution, the pass over each row's chunks, each chunk's output);
 ``launches`` counts calls.
+
+Under grad mode, with an input that requires grad, a CUDA call is a
+``torch.autograd.Function`` (:class:`RWKV6Scan`): its forward keeps the
+kernel's scratch of states (the state entering each chunk) instead of
+freeing it, and its backward launches ``csrc/rwkv6_scan_bwd.cu``
+(:mod:`.bwd`) from them.  Outside grad mode the scratch is freed as before.
+CPU tensors get :func:`rwkv6_scan_ref`, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -17,7 +24,6 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.rwkv6_scan import ref
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
@@ -73,21 +79,11 @@ def _check(r, k, v, logw, u, state0) -> None:
         raise ValueError("rwkv6_scan: tensors must be contiguous")
 
 
-def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               logw: torch.Tensor, u: torch.Tensor, state0: torch.Tensor):
-    """The RWKV-6 WKV recurrence over N = batch * heads rows.
-
-    r, k, v: (N, S, hd), float32 or bfloat16; logw: (N, S, hd) float32
-    log-decays (< 0); u: (N, hd) float32 bonus; state0: (N, hd, hd) float32.
-    Returns (out (N, S, hd) f32, state (N, hd, hd) f32).
-    """
+def _launch(r, k, v, logw, u, state0):
+    """One call of the forward kernel on CUDA tensors: (out, state, states),
+    states being the scratch that ends holding the state entering each
+    chunk."""
     global launches
-    _check(r, k, v, logw, u, state0)
-    if r.device.type == "cpu":
-        return rwkv6_scan_ref(r, k, v, logw, u, state0)
-    if r.device.type != "cuda":
-        raise ValueError(f"rwkv6_scan: no kernel for {r.device}")
-    refuse_grad("rwkv6_scan", r, k, v, logw, u, state0)
     N, S, hd = r.shape
     fn = _build.function("rwkv6_scan", _ARGTYPES)
     out = torch.empty((N, S, hd), dtype=torch.float32, device=r.device)
@@ -102,7 +98,60 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              N, S, hd, _DTYPES[r.dtype], stream)
     _build.check("rwkv6_scan", err)
     launches += 1
-    return out, state
+    return out, state, states
 
 
-__all__ = ["rwkv6_scan", "rwkv6_scan_ref", "ref"]
+def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   logw: torch.Tensor, u: torch.Tensor, state0: torch.Tensor):
+    """(out, state, states): the forward and the state entering each chunk
+    (``scratch_shapes(...)[0]``), as :class:`RWKV6Scan` keeps them for
+    :func:`bwd.rwkv6_scan_bwd`.  No autograd; CUDA only."""
+    _check(r, k, v, logw, u, state0)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan_fwd: no kernel for {r.device}")
+    return _launch(r, k, v, logw, u, state0)
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """The forward kernel, keeping the state entering each chunk, and the
+    backward kernel for its gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, state0):
+        out, state, states = rwkv6_scan_fwd(r, k, v, logw, u, state0)
+        ctx.save_for_backward(r, k, v, logw, u, state0, states)
+        ctx.set_materialize_grads(False)
+        return out, state
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        from repro_torch.kernels.rwkv6_scan import bwd   # it imports this module
+        r, k, v, logw, u, state0, states = ctx.saved_tensors
+        dout = torch.zeros_like(logw) if dout is None \
+            else dout.float().contiguous()
+        dstate = None if dstate is None else dstate.float().contiguous()
+        return bwd.rwkv6_scan_bwd(r, k, v, logw, u, state0, dout, dstate,
+                                  states=states)
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               logw: torch.Tensor, u: torch.Tensor, state0: torch.Tensor):
+    """The RWKV-6 WKV recurrence over N = batch * heads rows.
+
+    r, k, v: (N, S, hd), float32 or bfloat16; logw: (N, S, hd) float32
+    log-decays (< 0); u: (N, hd) float32 bonus; state0: (N, hd, hd) float32.
+    Returns (out (N, S, hd) f32, state (N, hd, hd) f32), with a ``grad_fn``
+    when grad mode is on and an input requires grad.
+    """
+    _check(r, k, v, logw, u, state0)
+    if r.device.type == "cpu":
+        return rwkv6_scan_ref(r, k, v, logw, u, state0)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_scan: no kernel for {r.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, logw, u, state0)):
+        return RWKV6Scan.apply(r, k, v, logw, u, state0)
+    return _launch(r, k, v, logw, u, state0)[:2]
+
+
+__all__ = ["rwkv6_scan", "rwkv6_scan_fwd", "RWKV6Scan", "rwkv6_scan_ref", "ref"]

@@ -2,18 +2,22 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
         --steps 30 --batch 4 --seq 512                 # on the card
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
+        --steps 20 --batch 4 --seq 512                 # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
         --smoke --device cpu                           # plain versions, CPU
 
 Wires together: config registry -> synthetic data pipeline (prefetching) ->
 train step (loss, ``torch.autograd.grad``, AdamW, in place) -> checkpoint
 manager (async, atomic, auto-resume) -> supervisor heartbeats.  ``--smoke``
-selects the reduced config.  One device: there is no mesh and no activation
-sharding rules yet (ROADMAP.md, Queue 1 item 14).  The decoder-only text
-families train; a VLM prefix and the audio / enc-dec batches are not ported
-(``NotImplementedError``).  The attention of a training step runs through
-the flash-attention kernel and its backward kernel on the card; the Mamba
-and WKV scans have no backward kernel yet and refuse grad mode there.
+selects the reduced config; a caller of :func:`main` may pass a config of
+its own (a cut of a registered one, such as jamba's ``TRAIN_CARD``).  One
+device: there is no mesh and no activation sharding rules yet (ROADMAP.md,
+Queue 1 item 14).  The decoder-only text families train, the recurrent ones
+(RWKV-6, the Mamba hybrid) included; a VLM prefix and the audio / enc-dec
+batches are not ported (``NotImplementedError``).  On the card the
+attention of a training step runs through the flash-attention kernel and
+its backward kernel, the WKV and selective scans through theirs.
 """
 from __future__ import annotations
 
@@ -36,7 +40,11 @@ from repro_torch.optim import adamw
 from repro_torch.runtime.supervisor import Supervisor
 
 
-def main(argv=None):
+def main(argv=None, cfg=None):
+    """Train ``--arch`` (``--smoke``: its reduced config) or, if given, the
+    ModelConfig ``cfg``, which ``--arch`` must name and which takes no
+    ``--smoke`` (``--dtype`` still sets its param and compute dtypes).
+    Returns the loss of every step."""
     p = argparse.ArgumentParser()
     p.add_argument("--arch", required=True)
     p.add_argument("--smoke", action="store_true")
@@ -59,8 +67,13 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    spec = get_arch(args.arch)
-    cfg = spec.smoke if args.smoke else spec.model
+    if cfg is None:
+        spec = get_arch(args.arch)
+        cfg = spec.smoke if args.smoke else spec.model
+    elif args.smoke or cfg.name != args.arch:
+        raise ValueError(f"train: the config given is {cfg.name!r}; --arch "
+                         f"must name it (got {args.arch!r}) and --smoke, "
+                         "which picks another config, is not taken with it")
     cfg = dataclasses.replace(cfg, param_dtype=args.dtype,
                               compute_dtype=args.dtype)
     if cfg.family == "vlm":
