@@ -37,13 +37,16 @@
 // dr's and dk's S_in / G_end terms, and drfar / dkfar their in-chunk sums
 // without the adjacent step (i < t-1, s > t+1): the adjacent terms, whose
 // decay is 1, cancel exactly and are left out, so every term left carries
-// at least one step's decay.  In f32 that is 1.4e-8 off f64 at logw = -8
+// at least one step's decay.  In f32 that is 1.2e-8 off f64 at logw = -8
 // and 2.6e-6 of dlogw's largest value at -1e-6 (N 4, S 512, hd 64; the
-// emulation in tests/test_torch_train_recurrent.py).
+// emulation of the sub-block form below in tests/test_torch_train_recurrent.py).
 //
 // What bounds it on this card: bytes, if anything: r, k, v, logw, dy read
 // and dr, dk, dv, dlogw written once, plus the entering states, ~185 MB at
 // the training shape (N = 128, S = 512, hd 64, f32), 55 us at 3.35 TB/s.
+// The chunked form adds ~1.2 G f32 FMAs there (a (C x hd)(hd x hd) product
+// each for dr, dk and dv, M, A and the in-chunk sums), 36 us at the f32 FMA
+// peak, and the in-chunk decays on the special-function units.
 //
 // Three launches a call, the forward's in reverse:
 //  * wkv_bwd_state_kernel, one block per (row, chunk): the chunk's own
@@ -54,14 +57,41 @@
 //    pass); it overwrites dG_c with G_end of chunk c, takes Q_c by shuffles
 //    over the threads of one row of G, writes dstate0, and sums du's parts
 //    over the chunks in order (no atomics);
-//  * wkv_bwd_out_kernel, one block per (row, chunk): stages r, k, v, dy and
-//    the log-decays, then S_in, then G_end in one buffer of shared memory,
-//    computes M, A and the bonus, dr (phase A), dk and dv (phase B), and
-//    dlogw by one pass over each column (phase C).  All products in f32 FMA
-//    on the CUDA cores, as the forward's.
-// hd is padded to HDP = 64 or 128 as in the forward.  This is a first
-// kernel, simple and right: A and the in-chunk sums take their
-// exponentials directly (no sub-blocks), and nothing is pipelined.
+//  * wkv_bwd_out_kernel, one block per (row, chunk), dr, dk, dv and dlogw.
+//
+// The output kernel, most of a call.  Taking every in-chunk decay directly
+// costs C^2 / 2 * hd exponentials three times over (A, dr, dk), and a
+// product one output a thread reads both operands from shared memory for
+// every FMA.  So:
+//  * a thread a (sub-block of kSub = 8 steps, column): NB x HDP threads
+//    (256 at hd 64, 512 at 128), each holding its 8 steps' values of dr, dk,
+//    dlogw's terms and dv in registers.  Every product is register-tiled
+//    that way: 8 rows a thread against one column, the row operand read as
+//    a float4 broadcast to the warp (one sub-block), the column operand 16
+//    bytes a lane.  f32 FMAs on the CUDA cores, not 3xTF32: the products are
+//    ~36 us of the f32 peak against ~65 us of this launch's bytes, and TF32
+//    alone misses 1e-3 where |y| ~ 600 (rwkv6_scan.cu's note);
+//  * the in-chunk sums by sub-blocks, as the forward's A: a pair within one
+//    sub-block takes its decay directly (and the thread of that column
+//    adds it to dr, dk and A at once); a pair across sub-blocks splits its
+//    decay at the earlier sub-block's last step p, e^{cum_ex_t - cum_i} =
+//    e^{cum_ex_t - cum_p} e^{cum_p - cum_i}, both exponents <= 0, so dr's
+//    far sum is sum_i M[t, i] kq_i (kq = k decayed to p) times one decay,
+//    dk's is kq's decay times sum_s M[s, t] rq_s (rq = r decayed from p),
+//    and A across sub-blocks is rq . kq.  ~16 K exponentials a block at hd
+//    64 where the first version took ~97 K;
+//  * dlogw keeps its term-by-term form: the adjacent pairs (decay 1) stay
+//    out of drf and dkf (masked out of the products across sub-blocks), and
+//    the suffix and prefix sums over the chunk are each thread's own 8 steps
+//    plus the other sub-blocks' totals;
+//  * A's terms within a sub-block are summed over a warp's columns by a
+//    reduce-scatter (31 shuffles a lane for 28 pairs), then over the warps in
+//    order; nothing is added by atomics;
+//  * shared memory: tiles that die are reused (kq and rq give way to r o drf,
+//    G_end takes S_in's place at hd 128), S_in and, at hd 64, G_end arrive by
+//    cp.async while the chunk's own terms are computed: ~108 KB a block at
+//    hd 64, two blocks an SM.
+// hd is padded to HDP = 64 or 128 as in the forward.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -250,25 +280,65 @@ wkv_bwd_pass_kernel(const float* __restrict__ dS, const float* __restrict__ stat
   }
 }
 
-// wkv_bwd_out_kernel's shared memory, in floats: r, k, v, dy, cum, and the
-// per-(step, channel) terms of dlogw a, rf (r o drfar) and b, each C x LD;
-// X (HDP x LD: S_in, then G_end); M and A (C x LDA); the bonus (C) and u
-// (HDP)
+// The output kernel works in sub-blocks of kSub steps (the forward's A in
+// wkv_out_kernel is built the same way): kPairs pairs (t, i), i < t, within
+// one sub-block, numbered t-major: (1,0), (2,0), (2,1), (3,0), ...
+constexpr int kSub = 8;
+constexpr int kPairs = kSub * (kSub - 1) / 2;
+__host__ __device__ constexpr int pair_t(int p) {
+  int t = 1;
+  while (t * (t + 1) / 2 <= p) ++t;
+  return t;
+}
+__host__ __device__ constexpr int pair_i(int p) { return p - pair_t(p) * (pair_t(p) - 1) / 2; }
+static_assert(kPairs <= 32, "a sub-block's pairs share out over a warp's lanes");
+
+// wkv_bwd_out_kernel's shared memory, in floats.  NT = NB x HDP threads, one
+// a (sub-block, column).  r, k, v, dy, cum (C x LD each; k becomes k decayed
+// to the chunk's end for dv); XS = S_in and XG = G_end (HDP x LD each; at
+// HDP 128 G_end takes S_in's place once dr is done); W, rows of LD: kq (the
+// first KQ rows: k decayed to the end of its sub-block) and rq (RQ rows: r
+// decayed from the end of each earlier sub-block), then rf (C rows) once A
+// is built; M (C x LDA, M[t, i] = dy_t . v_i); AT (C x LDA, AT[i, t] = A[t,
+// i], zero for t <= i); u (HDP); the bonus (C); ARED, each warp's sums of A
+// within its sub-block (NB x HDP); TOT, each sub-block's sums of dlogw's
+// terms a and b (2 x NB x HDP).
 template <int HDP, int C>
 struct BwdOutLayout {
   static constexpr int LD = Shape<HDP, C>::LD, LDA = C + 4, TILE = C * LD;
+  static constexpr int NB = C / kSub, NT = NB * HDP;
+  static constexpr int KQ = C - kSub, RQ = kSub * NB * (NB - 1) / 2;
+  static constexpr bool kOwnG = HDP == 64;         // G_end in a buffer of its own
+  static constexpr int WROWS = KQ + RQ > C ? KQ + RQ : C;
   static constexpr int R = 0, K = R + TILE, V = K + TILE, DY = V + TILE, CUM = DY + TILE;
-  static constexpr int TA = CUM + TILE, TRF = TA + TILE, TB = TRF + TILE;
-  static constexpr int X = TB + TILE, M = X + HDP * LD, A = M + C * LDA;
-  static constexpr int BONUS = A + C * LDA, U = BONUS + C, END = U + HDP;
+  static constexpr int XS = CUM + TILE, XG = kOwnG ? XS + HDP * LD : XS;
+  static constexpr int W = XG + HDP * LD, M = W + WROWS * LD, AT = M + C * LDA;
+  static constexpr int U = AT + C * LDA, BONUS = U + HDP, ARED = BONUS + C;
+  static constexpr int TOT = ARED + NB * HDP, END = TOT + 2 * NB * HDP;
+  // first rq row of sub-block J (rows for its later steps s = kSub (J + 1) .. C - 1)
+  static __host__ __device__ constexpr int rq_first(int J) {
+    return J * C - kSub * J * (J + 1) / 2;
+  }
 };
 
-// One block per (row n, chunk c), block index n * nc + c.  states: the
-// forward's entering states; gst: G_end of each chunk (after the pass); Q:
-// the pass's sum_v S_in o G_end; u: (N, hd) f32.  Writes dr, dk, dv (N, S,
-// hd) of T and dlogw (N, S, hd) f32.  flags as wkv_bwd_state_kernel's.
+__device__ __forceinline__ void fma8(float (&acc)[kSub], const float4 a, const float4 b, float x) {
+  acc[0] = fmaf(a.x, x, acc[0]);
+  acc[1] = fmaf(a.y, x, acc[1]);
+  acc[2] = fmaf(a.z, x, acc[2]);
+  acc[3] = fmaf(a.w, x, acc[3]);
+  acc[4] = fmaf(b.x, x, acc[4]);
+  acc[5] = fmaf(b.y, x, acc[5]);
+  acc[6] = fmaf(b.z, x, acc[6]);
+  acc[7] = fmaf(b.w, x, acc[7]);
+}
+
+// One block per (row n, chunk c), block index n * nc + c, NB x HDP threads:
+// thread (J, kk) takes the kSub steps of sub-block J at column kk.  states:
+// the forward's entering states; gst: G_end of each chunk (after the pass);
+// Q: the pass's sum_v S_in o G_end; u: (N, hd) f32.  Writes dr, dk, dv (N,
+// S, hd) of T and dlogw (N, S, hd) f32.  flags as wkv_bwd_state_kernel's.
 template <typename T, int HDP, int C>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(BwdOutLayout<HDP, C>::NT, 512 / BwdOutLayout<HDP, C>::NT)
 wkv_bwd_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ logw,
                    const float* __restrict__ u, const float* __restrict__ dy,
@@ -277,38 +347,47 @@ wkv_bwd_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
                    T* __restrict__ dv, float* __restrict__ dlogw, int S, int hd, int nc,
                    int flags) {
   using O = BwdOutLayout<HDP, C>;
-  constexpr int LD = O::LD, LDA = O::LDA;
+  constexpr int LD = O::LD, LDA = O::LDA, NB = O::NB, NT = O::NT;
+  static_assert(C % kSub == 0 && NB >= 2 && HDP % 32 == 0, "sub-blocks");
   extern __shared__ __align__(16) float smem[];
   float* s_r = smem + O::R;
   float* s_k = smem + O::K;
   float* s_v = smem + O::V;
   float* s_dy = smem + O::DY;
   float* s_cum = smem + O::CUM;
-  float* s_a = smem + O::TA;
-  float* s_rf = smem + O::TRF;
-  float* s_b = smem + O::TB;
-  float* s_x = smem + O::X;
+  float* s_xs = smem + O::XS;
+  float* s_xg = smem + O::XG;
+  float* s_kq = smem + O::W;
+  float* s_rq = s_kq + O::KQ * LD;
+  float* s_rf = smem + O::W;
   float* s_M = smem + O::M;
-  float* s_A = smem + O::A;
-  float* s_bonus = smem + O::BONUS;
+  float* s_at = smem + O::AT;
   float* s_u = smem + O::U;
+  float* s_bonus = smem + O::BONUS;
+  float* s_ared = smem + O::ARED;
+  float* s_tot = smem + O::TOT;
 
   const int n = blockIdx.x / nc, c = blockIdx.x % nc;
   const int t0 = c * C, tn = min(C, S - t0);
   const size_t slot = (size_t)n * nc + c;
-  auto stage_x = [&](const float* src) {     // (HDP x HDP) f32 into s_x by cp.async
-    for (int idx = threadIdx.x; idx < HDP * HDP / 4; idx += kThreads) {
+  const int J = threadIdx.x / HDP, kk = threadIdx.x % HDP, tJ = J * kSub;
+  const int lane = threadIdx.x % 32;
+  auto stage_x = [&](float* dst, const float* src) {   // (HDP x HDP) f32 by cp.async
+    for (int idx = threadIdx.x; idx < HDP * HDP / 4; idx += NT) {
       const int row = idx / (HDP / 4), q = idx % (HDP / 4);
-      cp_async16(s_x + row * LD + 4 * q, src + (size_t)row * HDP + 4 * q);
+      cp_async16(dst + row * LD + 4 * q, src + (size_t)row * HDP + 4 * q);
     }
     asm volatile("cp.async.commit_group;");
   };
-  stage_x(states + slot * HDP * HDP);
+  // S_in (and G_end where it has its own buffer) stream in while the
+  // chunk's own terms are computed
+  stage_x(s_xs, states + slot * HDP * HDP);
+  if constexpr (O::kOwnG) stage_x(s_xg, gst + slot * HDP * HDP);
 
   const size_t seq = ((size_t)n * S + t0) * hd;
   {
-    Rows<T, HDP, C> rr, rk, rv;
-    Rows<float, HDP, C> rw, rd;
+    Rows<T, HDP, C, NT> rr, rk, rv;
+    Rows<float, HDP, C, NT> rw, rd;
     rr.load(r + seq, tn, hd, flags & 1);
     rk.load(k + seq, tn, hd, flags & 1);
     rv.load(v + seq, tn, hd, flags & 1);
@@ -320,106 +399,297 @@ wkv_bwd_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
     rw.store(s_cum, kLog2e);
     rd.store(s_dy, 1.f);
   }
-  for (int ch = threadIdx.x; ch < HDP; ch += kThreads)
-    s_u[ch] = ch < hd ? u[(size_t)n * hd + ch] : 0.f;
+  for (int ch = threadIdx.x; ch < HDP; ch += NT) s_u[ch] = ch < hd ? u[(size_t)n * hd + ch] : 0.f;
+  for (int idx = threadIdx.x; idx < C * C; idx += NT) {
+    const int i = idx / C, t = idx % C;
+    if (t <= i) s_at[i * LDA + t] = 0.f;
+  }
   __syncthreads();
-  cumsum_columns<HDP, C>(s_cum);
+  cumsum_columns<HDP, C, NT>(s_cum);
   __syncthreads();
 
-  // M[t, i] = dy_t . v_i; A[s, t] = sum_kk r_s k_t e^{cum_ex_s - cum_t} (s > t)
-  for (int idx = threadIdx.x; idx < C * C; idx += kThreads) {
-    const int t = idx / C, i = idx % C;
-    float m = 0.f, a = 0.f;
-    for (int ch = 0; ch < HDP; ch += 4)
-      m = dot4(ld4(s_dy + t * LD + ch), ld4(s_v + i * LD + ch), m);
-    if (t > i) {
-      const float* rt = s_r + t * LD;
-      const float* ki = s_k + i * LD;
-      const float* ct = s_cum + (t - 1) * LD;
-      const float* ci = s_cum + i * LD;
-      for (int ch = 0; ch < HDP; ++ch) a = fmaf(rt[ch] * ki[ch], e2(ct[ch] - ci[ch]), a);
+  // ---- phase 1: kq, M, the bonus.  cm[m] = cum at step tJ + m, column kk;
+  // cx = cum_ex of step tJ (0 for the chunk's first step)
+  float cm[kSub];
+#pragma unroll
+  for (int m = 0; m < kSub; ++m) cm[m] = s_cum[(tJ + m) * LD + kk];
+  const float cx = J > 0 ? s_cum[(tJ - 1) * LD + kk] : 0.f;
+  float ek[kSub];                                 // decay from each step to the sub-block's end
+  if (J < NB - 1) {
+#pragma unroll
+    for (int m = 0; m < kSub; ++m) {
+      ek[m] = e2(cm[kSub - 1] - cm[m]);
+      s_kq[(tJ + m) * LD + kk] = s_k[(tJ + m) * LD + kk] * ek[m];
     }
-    s_M[t * LDA + i] = m;
-    s_A[t * LDA + i] = a;
   }
-  for (int t = threadIdx.x; t < C; t += kThreads) {
+  // M[t, i] = dy_t . v_i, 4 rows t a thread (read as a broadcast) and one i
+  for (int task = threadIdx.x; task < C * C / 4; task += NT) {
+    const int t = 4 * (task / C), i = task % C;
+    float m0 = 0.f, m1 = 0.f, m2 = 0.f, m3 = 0.f;
+#pragma unroll 4
+    for (int ch = 0; ch < HDP; ch += 4) {
+      const float4 x = ld4(s_v + i * LD + ch);
+      m0 = dot4(ld4(s_dy + t * LD + ch), x, m0);
+      m1 = dot4(ld4(s_dy + (t + 1) * LD + ch), x, m1);
+      m2 = dot4(ld4(s_dy + (t + 2) * LD + ch), x, m2);
+      m3 = dot4(ld4(s_dy + (t + 3) * LD + ch), x, m3);
+    }
+    s_M[t * LDA + i] = m0;
+    s_M[(t + 1) * LDA + i] = m1;
+    s_M[(t + 2) * LDA + i] = m2;
+    s_M[(t + 3) * LDA + i] = m3;
+  }
+  // the bonus (current token) term r_t . (u o k_t): BT lanes a row
+  {
+    constexpr int BT = NT / C, BCH = HDP / BT;
+    static_assert(BT <= 32 && 32 % BT == 0 && BCH % 4 == 0, "bonus lanes");
+    const int t = threadIdx.x / BT, ch0 = (threadIdx.x % BT) * BCH;
     float acc = 0.f;
-    for (int ch = 0; ch < HDP; ++ch) acc = fmaf(s_r[t * LD + ch] * s_u[ch], s_k[t * LD + ch], acc);
-    s_bonus[t] = acc;
+#pragma unroll
+    for (int ch = ch0; ch < ch0 + BCH; ch += 4) {
+      const float4 a = ld4(s_r + t * LD + ch), b = ld4(s_u + ch), kk4 = ld4(s_k + t * LD + ch);
+      acc = fmaf(a.x * b.x, kk4.x, acc);
+      acc = fmaf(a.y * b.y, kk4.y, acc);
+      acc = fmaf(a.z * b.z, kk4.z, acc);
+      acc = fmaf(a.w * b.w, kk4.w, acc);
+    }
+#pragma unroll
+    for (int o = BT / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (threadIdx.x % BT == 0) s_bonus[t] = acc;
   }
-  asm volatile("cp.async.wait_all;");
   __syncthreads();
 
-  // phase A: dr, with s_x = S_in
-  for (int idx = threadIdx.x; idx < C * HDP; idx += kThreads) {
-    const int t = idx / HDP, kk = idx % HDP;
-    float sdy = 0.f;
-    for (int j = 0; j < HDP; j += 4) sdy = dot4(ld4(s_x + kk * LD + j), ld4(s_dy + t * LD + j), sdy);
-    const float cex = t > 0 ? s_cum[(t - 1) * LD + kk] : 0.f;
-    const float drin = e2(cex) * sdy;
-    float far = 0.f;
-    for (int i = 0; i + 1 < t; ++i)
-      far = fmaf(s_M[t * LDA + i] * s_k[i * LD + kk], e2(cex - s_cum[i * LD + kk]), far);
+  // ---- phase 2: the in-chunk sums of dr and dk without the adjacent step
+  // (drf, dkf), A within the sub-block, and rq
+  float drf[kSub], dkf[kSub];
+  {
+    float rr[kSub], kr[kSub];
+#pragma unroll
+    for (int m = 0; m < kSub; ++m) {
+      rr[m] = s_r[(tJ + m) * LD + kk];
+      kr[m] = s_k[(tJ + m) * LD + kk];
+      drf[m] = dkf[m] = 0.f;
+    }
+    // each pair (t, i) within the sub-block, directly; its term of A at kk
+    // goes to ap[pair], the terms of drf and dkf are added in place
+    float ap[32];
+#pragma unroll
+    for (int t = 1; t < kSub; ++t) {
+#pragma unroll
+      for (int i = 0; i < t; ++i) {
+        const float rk = rr[t] * kr[i];
+        if (i + 1 == t) {                         // adjacent: decay 1, a near term of dr, dk
+          ap[t * (t - 1) / 2 + i] = rk;
+          continue;
+        }
+        const float E = e2(cm[t - 1] - cm[i]);
+        const float mti = s_M[(tJ + t) * LDA + tJ + i];
+        drf[t] = fmaf(mti * kr[i], E, drf[t]);
+        dkf[i] = fmaf(mti * rr[t], E, dkf[i]);
+        ap[t * (t - 1) / 2 + i] = rk * E;
+      }
+    }
+#pragma unroll
+    for (int p = kPairs; p < 32; ++p) ap[p] = 0.f;
+    // summed over the warp's columns by a reduce-scatter: lane L ends with
+    // pair L's sum (halving the values a lane holds at each level)
+#pragma unroll
+    for (int w = 16; w > 0; w >>= 1) {
+      const bool up = lane & w;
+#pragma unroll
+      for (int p = 0; p < w; ++p)
+        ap[p] = (up ? ap[p + w] : ap[p]) + __shfl_xor_sync(0xffffffffu, up ? ap[p] : ap[p + w], w);
+    }
+    s_ared[threadIdx.x] = ap[0];
+
+    // dr from every earlier sub-block jp: for i in jp and t in J,
+    // e^{cum_ex_t - cum_i} = e^{cum_ex_t - cum_p} e^{cum_p - cum_i} with p
+    // jp's last step, both exponents <= 0: sum_i M[t, i] kq_i, then one
+    // decay.  The adjacent pair (t = tJ, i = tJ - 1) is left out.
+    for (int jp = 0; jp < J; ++jp) {
+      const int b0 = jp * kSub;
+      float kq[kSub];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) kq[i] = s_kq[(b0 + i) * LD + kk];
+      const float cp = s_cum[(b0 + kSub - 1) * LD + kk];
+#pragma unroll
+      for (int t = 0; t < kSub; ++t) {
+        const float4 m0 = ld4(s_M + (tJ + t) * LDA + b0), m1 = ld4(s_M + (tJ + t) * LDA + b0 + 4);
+        const float m7 = (t == 0 && jp == J - 1) ? 0.f : m1.w;
+        float acc = m0.x * kq[0];
+        acc = fmaf(m0.y, kq[1], acc);
+        acc = fmaf(m0.z, kq[2], acc);
+        acc = fmaf(m0.w, kq[3], acc);
+        acc = fmaf(m1.x, kq[4], acc);
+        acc = fmaf(m1.y, kq[5], acc);
+        acc = fmaf(m1.z, kq[6], acc);
+        acc = fmaf(m7, kq[7], acc);
+        drf[t] = fmaf(e2((t > 0 ? cm[t > 0 ? t - 1 : 0] : cx) - cp), acc, drf[t]);
+      }
+    }
+    // dk from every later step s: e^{cum_ex_s - cum_t} = e^{cum_ex_s -
+    // cum_p} e^{cum_p - cum_t}, p this sub-block's last step: rq_s = r_s
+    // e^{cum_ex_s - cum_p} (kept for A), sum_s M[s, t] rq_s, then ek_t.  The
+    // adjacent pair (s = p + 1, t = p) is left out.
+    if (J < NB - 1) {
+      float dkc[kSub];
+#pragma unroll
+      for (int m = 0; m < kSub; ++m) dkc[m] = 0.f;
+      float* rq = s_rq + (O::rq_first(J) - kSub * (J + 1)) * LD + kk;   // + s * LD: step s
+      for (int s = tJ + kSub; s < C; ++s) {
+        const float x = s_r[s * LD + kk] * e2(s_cum[(s - 1) * LD + kk] - cm[kSub - 1]);
+        rq[s * LD] = x;
+        float4 m0 = ld4(s_M + s * LDA + tJ), m1 = ld4(s_M + s * LDA + tJ + 4);
+        if (s == tJ + kSub) m1.w = 0.f;
+        fma8(dkc, m0, m1, x);
+      }
+#pragma unroll
+      for (int m = 0; m < kSub; ++m) dkf[m] = fmaf(ek[m], dkc[m], dkf[m]);
+    }
+  }
+  __syncthreads();
+
+  // ---- phase 3: A.  Within sub-blocks: the warps' sums, in warp order;
+  // across them: rq_J[s] . kq[t], two t a thread
+  for (int idx = threadIdx.x; idx < NB * kPairs; idx += NT) {
+    const int jb = idx / kPairs, p = idx % kPairs;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < HDP / 32; ++w) a += s_ared[jb * HDP + w * 32 + p];
+    s_at[(jb * kSub + pair_i(p)) * LDA + jb * kSub + pair_t(p)] = a;
+  }
+  for (int task = threadIdx.x; task < O::RQ * kSub / 2; task += NT) {
+    const int row = task / (kSub / 2), i2 = 2 * (task % (kSub / 2));
+    int jb = 0;
+    while (row >= O::rq_first(jb + 1)) ++jb;
+    const int s = row - O::rq_first(jb) + kSub * (jb + 1), i = kSub * jb + i2;
+    const float* rq = s_rq + row * LD;
+    const float* k0 = s_kq + i * LD;
+    const float* k1 = k0 + LD;
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll 4
+    for (int ch = 0; ch < HDP; ch += 4) {
+      const float4 x = ld4(rq + ch);
+      a0 = dot4(x, ld4(k0 + ch), a0);
+      a1 = dot4(x, ld4(k1 + ch), a1);
+    }
+    s_at[i * LDA + s] = a0;
+    s_at[(i + 1) * LDA + s] = a1;
+  }
+  if constexpr (O::kOwnG)
+    asm volatile("cp.async.wait_group 1;");       // S_in is here, G_end may not be
+  else
+    asm volatile("cp.async.wait_group 0;");
+  __syncthreads();
+
+  // ---- phase 4: dr_t = e^{cum_ex_t} S_in dy_t + drf_t + near + u k_t M[t, t]
+  float acc[kSub];
+#pragma unroll
+  for (int m = 0; m < kSub; ++m) acc[m] = 0.f;
+#pragma unroll 2
+  for (int j = 0; j < HDP; j += 4) {
+    const float4 x = ld4(s_xs + kk * LD + j);
+#pragma unroll
+    for (int m = 0; m < kSub; ++m) acc[m] = dot4(x, ld4(s_dy + (tJ + m) * LD + j), acc[m]);
+  }
+  if constexpr (!O::kOwnG) {                      // G_end into S_in's buffer
+    __syncthreads();
+    stage_x(s_xg, gst + slot * HDP * HDP);
+  }
+  const float uk = s_u[kk];
+  float ta[kSub];                                 // dlogw's a_t = r_t o drin_t
+#pragma unroll
+  for (int m = 0; m < kSub; ++m) {
+    const int t = tJ + m;
+    const float drin = e2(m > 0 ? cm[m > 0 ? m - 1 : 0] : cx) * acc[m];
     const float near = t > 0 ? s_M[t * LDA + t - 1] * s_k[(t - 1) * LD + kk] : 0.f;
-    const float rt = s_r[t * LD + kk];
-    const float d = drin + far + near + s_u[kk] * s_k[t * LD + kk] * s_M[t * LDA + t];
+    const float d = drin + drf[m] + near + uk * s_k[t * LD + kk] * s_M[t * LDA + t];
     if (t < tn && kk < hd) dr[seq + (size_t)t * hd + kk] = from_f32<T>(d);
-    s_a[t * LD + kk] = rt * drin;
-    s_rf[t * LD + kk] = rt * far;
+    const float rt = s_r[t * LD + kk];
+    ta[m] = rt * drin;
+    s_rf[t * LD + kk] = rt * drf[m];
   }
-  __syncthreads();
-  stage_x(gst + slot * HDP * HDP);
   asm volatile("cp.async.wait_all;");
   __syncthreads();
 
-  // phase B: dk, with s_x = G_end
-  for (int idx = threadIdx.x; idx < C * HDP; idx += kThreads) {
-    const int t = idx / HDP, kk = idx % HDP;
-    float gv = 0.f;
-    for (int j = 0; j < HDP; j += 4) gv = dot4(ld4(s_x + kk * LD + j), ld4(s_v + t * LD + j), gv);
-    const float ct = s_cum[t * LD + kk];
-    const float dkend = e2(s_cum[(C - 1) * LD + kk] - ct) * gv;
-    float far = 0.f;
-    for (int s = t + 2; s < C; ++s)
-      far = fmaf(s_M[s * LDA + t] * s_r[s * LD + kk], e2(s_cum[(s - 1) * LD + kk] - ct), far);
+  // ---- phase 5: dk_t = e^{cum_end - cum_t} G_end v_t + dkf_t + near + r_t u
+  // M[t, t]; dlogw's b_t; k decayed to the chunk's end, in place
+#pragma unroll
+  for (int m = 0; m < kSub; ++m) acc[m] = 0.f;
+#pragma unroll 2
+  for (int j = 0; j < HDP; j += 4) {
+    const float4 x = ld4(s_xg + kk * LD + j);
+#pragma unroll
+    for (int m = 0; m < kSub; ++m) acc[m] = dot4(x, ld4(s_v + (tJ + m) * LD + j), acc[m]);
+  }
+  const float cend = s_cum[(C - 1) * LD + kk];
+  float tb[kSub];                                 // dlogw's b_t
+  float sa = 0.f, sb = 0.f;
+#pragma unroll
+  for (int m = 0; m < kSub; ++m) {
+    const int t = tJ + m;
+    const float kend = e2(cend - cm[m]);
+    const float dkend = kend * acc[m];
+    const float rt = s_r[t * LD + kk], kt = s_k[t * LD + kk];
     const float near = t + 1 < C ? s_M[(t + 1) * LDA + t] * s_r[(t + 1) * LD + kk] : 0.f;
-    const float kt = s_k[t * LD + kk];
-    const float d = dkend + far + near + s_r[t * LD + kk] * s_u[kk] * s_M[t * LDA + t];
+    const float d = dkend + dkf[m] + near + rt * uk * s_M[t * LDA + t];
     if (t < tn && kk < hd) dk[seq + (size_t)t * hd + kk] = from_f32<T>(d);
-    s_b[t * LD + kk] = fmaf(kt, dkend + far, t + 1 < C ? -s_rf[(t + 1) * LD + kk] : 0.f);
+    tb[m] = fmaf(kt, dkend + dkf[m], t + 1 < C ? -s_rf[(t + 1) * LD + kk] : 0.f);
+    s_k[t * LD + kk] = kt * kend;
+    sb += tb[m];
+    sa += ta[kSub - 1 - m];
   }
+  s_tot[J * HDP + kk] = sa;
+  s_tot[(NB + J) * HDP + kk] = sb;
   __syncthreads();
-  // k decayed to the chunk's end, in place (k is read no more as it was)
-  for (int idx = threadIdx.x; idx < C * HDP; idx += kThreads) {
-    const int t = idx / HDP, kk = idx % HDP;
-    s_k[t * LD + kk] *= e2(s_cum[(C - 1) * LD + kk] - s_cum[t * LD + kk]);
+
+  // ---- phase 6: dv_t = (k_t e^{cum_end - cum_t}) G_end + sum_{s>t} A[s, t]
+  // dy_s + bonus_t dy_t, thread (J, jj = kk)
+#pragma unroll
+  for (int m = 0; m < kSub; ++m) acc[m] = 0.f;
+#pragma unroll 2
+  for (int k2 = 0; k2 < HDP; k2 += 4) {
+    const float g0 = s_xg[k2 * LD + kk], g1 = s_xg[(k2 + 1) * LD + kk];
+    const float g2 = s_xg[(k2 + 2) * LD + kk], g3 = s_xg[(k2 + 3) * LD + kk];
+#pragma unroll
+    for (int m = 0; m < kSub; ++m) {
+      const float4 x = ld4(s_k + (tJ + m) * LD + k2);
+      acc[m] = fmaf(x.w, g3, fmaf(x.z, g2, fmaf(x.y, g1, fmaf(x.x, g0, acc[m]))));
+    }
   }
-  __syncthreads();
-  // dv
-  for (int idx = threadIdx.x; idx < C * HDP; idx += kThreads) {
-    const int t = idx / HDP, jj = idx % HDP;
-    float acc = 0.f;
-    for (int kk = 0; kk < HDP; ++kk) acc = fmaf(s_k[t * LD + kk], s_x[kk * LD + jj], acc);
-    for (int s = t + 1; s < C; ++s) acc = fmaf(s_A[s * LDA + t], s_dy[s * LD + jj], acc);
-    acc = fmaf(s_bonus[t], s_dy[t * LD + jj], acc);
-    if (t < tn && jj < hd) dv[seq + (size_t)t * hd + jj] = from_f32<T>(acc);
+  for (int s = tJ; s < C; s += 4) {               // AT[t, s] is zero for s <= t
+    const float d0 = s_dy[s * LD + kk], d1 = s_dy[(s + 1) * LD + kk];
+    const float d2 = s_dy[(s + 2) * LD + kk], d3 = s_dy[(s + 3) * LD + kk];
+#pragma unroll
+    for (int m = 0; m < kSub; ++m) {
+      const float4 x = ld4(s_at + (tJ + m) * LDA + s);
+      acc[m] = fmaf(x.w, d3, fmaf(x.z, d2, fmaf(x.y, d1, fmaf(x.x, d0, acc[m]))));
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < kSub; ++m) {
+    const int t = tJ + m;
+    const float x = fmaf(s_bonus[t], s_dy[t * LD + kk], acc[m]);
+    if (t < tn && kk < hd) dv[seq + (size_t)t * hd + kk] = from_f32<T>(x);
   }
 
-  // phase C: dlogw_t = e^{cum_end} Q + sum_{s>t} a_s + sum_{i<t} b_i, a
-  // column a thread
-  for (int kk = threadIdx.x; kk < hd; kk += kThreads) {
-    float suf = 0.f;
-    for (int t = C - 1; t >= 0; --t) {          // a_t -> sum_{s>t} a_s, in place
-      const float at = s_a[t * LD + kk];
-      s_a[t * LD + kk] = suf;
-      suf += at;
-    }
-    const float base = e2(s_cum[(C - 1) * LD + kk]) * Q[slot * HDP + kk];
-    float pre = 0.f;
-    for (int t = 0; t < tn; ++t) {
-      dlogw[seq + (size_t)t * hd + kk] = base + s_a[t * LD + kk] + pre;
-      pre += s_b[t * LD + kk];
-    }
+  // ---- phase 7: dlogw_t = e^{cum_end} Q + sum_{s>t} a_s + sum_{i<t} b_i,
+  // the sums over other sub-blocks from their totals
+  float suf = 0.f, pre = 0.f;
+  for (int jb = NB - 1; jb > J; --jb) suf += s_tot[jb * HDP + kk];
+  for (int jb = 0; jb < J; ++jb) pre += s_tot[(NB + jb) * HDP + kk];
+  const float base = e2(cend) * Q[slot * HDP + kk];
+  float sfx[kSub];
+#pragma unroll
+  for (int m = kSub - 1; m >= 0; --m) {
+    sfx[m] = suf;
+    suf += ta[m];
+  }
+#pragma unroll
+  for (int m = 0; m < kSub; ++m) {
+    const int t = tJ + m;
+    if (t < tn && kk < hd) dlogw[seq + (size_t)t * hd + kk] = base + sfx[m] + pre;
+    pre += tb[m];
   }
 }
 
@@ -466,7 +736,8 @@ cudaError_t launch(const void* r, const void* k, const void* v, const void* logw
       static_cast<float*>(dstate0), static_cast<float*>(du), hd, nc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  wkv_bwd_out_kernel<T, HDP, C><<<(unsigned)blocks, kThreads, out_smem<HDP, C>(), stream>>>(
+  wkv_bwd_out_kernel<T, HDP, C><<<(unsigned)blocks, BwdOutLayout<HDP, C>::NT, out_smem<HDP, C>(),
+                                   stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(logw), static_cast<const float*>(u),
       static_cast<const float*>(dy), static_cast<const float*>(states), g, q,

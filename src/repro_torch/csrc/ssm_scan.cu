@@ -51,10 +51,10 @@
 //  * h_out may be h0: each lane reads its own states before it writes them;
 //  * a = -exp(A_log) is pre-scaled by log2 e, so each exp is one ex2; all
 //    arithmetic is in f32, as in the reference;
-//  * under grad mode the caller passes ckpt, and each tile's entering state
-//    (16 bytes a lane, coalesced, like h_out) is written there for the
-//    backward (csrc/ssm_scan_bwd.cu); serving passes null and writes no
-//    more than before.
+//  * under grad mode the caller passes ckpt, and the state entering every
+//    kCkpt steps (two a tile; 16 bytes a lane, coalesced, like h_out) is
+//    written there for the backward (csrc/ssm_scan_bwd.cu); serving passes
+//    null and writes no more than before.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,7 +64,9 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTile = kSsmCheckpoint;        // time steps a tile of a prompt
+constexpr int kCkpt = kSsmCheckpoint;        // steps between the backward's checkpoints
+constexpr int kTile = 16;                    // time steps a tile of a prompt
+static_assert(kTile % kCkpt == 0, "a tile holds whole checkpoint intervals");
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -154,12 +156,14 @@ __device__ __forceinline__ float reduce_scatter(const float (&p)[LPC], int q) {
 // steps are real (no masks, no early exit); otherwise steps past tn run with
 // dt = u = 0 (h stays as it is) and groups wholly past tn are skipped.
 // s_u, s_dt: the tile's u and dt, column cl this lane's channel; yt: y at
-// (b, t0, d).
+// (b, t0, d); ck: null, or this lane's checkpoint of the tile's first step,
+// those of its later intervals `stride` floats apart.
 template <typename T, int DS, int CPB, bool kFull>
 __device__ __forceinline__ void run_tile(const T (*s_u)[CPB], const float (*s_dt)[CPB],
                                          const float (*s_b)[DS], const float (*s_c)[DS],
                                          float4& h, const float4& a, float ud, int q, int cl,
-                                         int tn, float* yt, int di, bool ok) {
+                                         int tn, float* yt, int di, bool ok, float* ck,
+                                         size_t stride) {
   constexpr int LPC = DS / 4;
   const int s0 = 4 * q;
 #pragma unroll
@@ -183,13 +187,17 @@ __device__ __forceinline__ void run_tile(const T (*s_u)[CPB], const float (*s_dt
     }
     const float yq = reduce_scatter<LPC>(p, q);
     if (ok && (kFull || g * LPC + q < tn)) yt[(size_t)(g * LPC + q) * di] = yq;
+    const int next = (g + 1) * LPC;          // the state entering step `next`
+    if (ck != nullptr && next % kCkpt == 0 && next < kTile && (kFull || next < tn))
+      *reinterpret_cast<float4*>(ck + next / kCkpt * stride) = h;
   }
 }
 
 // u: (Bz, S, di) of T; dt: (Bz, S, di) f32; A_log: (di, DS) f32; Bm, Cm:
 // (Bz, S, DS) of T; Dv: (di,) f32; h0, h_out: (Bz, di, DS) f32 (h_out may
-// be h0); y: (Bz, S, di) f32; ckpt: null, or (Bz, ceil(S / kTile), di, DS)
-// f32 that gets the state entering each tile (the backward's checkpoints);
+// be h0); y: (Bz, S, di) f32; ckpt: null, or (Bz, ceil(S / kCkpt), di, DS)
+// f32 that gets the state entering every kCkpt steps (the backward's
+// checkpoints);
 // all contiguous.  Grid (ceil(di / CPB), Bz)
 // with CPB = kThreads / (DS / 4) channels a block.  vec: bit 0 u, bit 1 dt
 // rows 16-byte aligned.
@@ -215,7 +223,8 @@ ssm_kernel(const T* __restrict__ u, const float* __restrict__ dt,
   const int dc = min(d, di - 1);
   const size_t row = (size_t)blockIdx.y * S;      // index of (b, t = 0)
   const size_t hs = ((size_t)blockIdx.y * di + dc) * DS + 4 * q;
-  const int ntiles = (S + kTile - 1) / kTile;
+  const int ntiles = (S + kTile - 1) / kTile, nck = (S + kCkpt - 1) / kCkpt;
+  const size_t ck_stride = (size_t)di * DS;        // floats from one checkpoint to the next
 
   // u and dt: tiles 0 and 1 in flight before anything else
   auto issue = [&](int tile) {
@@ -240,10 +249,13 @@ ssm_kernel(const T* __restrict__ u, const float* __restrict__ dt,
 
   for (int tile = 0; tile < ntiles; ++tile) {
     const int t0 = tile * kTile, tn = min(kTile, S - t0), buf = tile & 1, st = tile % kStages;
-    // the state entering the tile, kept for the backward (grad mode only)
-    if (ckpt != nullptr && ok)
-      *reinterpret_cast<float4*>(ckpt + (((size_t)blockIdx.y * ntiles + tile) * di + dc) * DS +
-                                 4 * q) = h;
+    // the state entering the tile, and those of its later intervals in
+    // run_tile, kept for the backward (grad mode only)
+    float* ck = ckpt != nullptr && ok
+                    ? ckpt + (((size_t)blockIdx.y * nck + tile * (kTile / kCkpt)) * di + dc) * DS +
+                          4 * q
+                    : nullptr;
+    if (ck != nullptr) *reinterpret_cast<float4*>(ck) = h;
     asm volatile("cp.async.wait_group 1;");  // this tile's u, dt are here
     __syncthreads();                         // for every thread; the last tile is done
     issue(tile + 2);                         // into the stage the last tile used
@@ -251,10 +263,10 @@ ssm_kernel(const T* __restrict__ u, const float* __restrict__ dt,
     float* yt = y + (row + t0) * di + d;
     if (tn == kTile)
       run_tile<T, DS, CPB, true>(s_u[st], s_dt[st], s_b[buf], s_c[buf], h, a, ud, q,
-                                       cl, tn, yt, di, ok);
+                                       cl, tn, yt, di, ok, ck, ck_stride);
     else
       run_tile<T, DS, CPB, false>(s_u[st], s_dt[st], s_b[buf], s_c[buf], h, a, ud, q,
-                                        cl, tn, yt, di, ok);
+                                        cl, tn, yt, di, ok, ck, ck_stride);
     if (tile + 1 < ntiles) bc.stage(s_b[buf ^ 1], s_c[buf ^ 1]);
   }
 
@@ -346,10 +358,10 @@ cudaError_t launch_ds(const void* u, const void* dt, const void* A_log,
 // u, B, C: dtype 0 = float32, 1 = bfloat16; u: (Bz, S, di); B, C: (Bz, S,
 // ds); dt: (Bz, S, di) f32; A_log: (di, ds) f32; D: (di,) f32; h0, h_out:
 // (Bz, di, ds) f32, h_out = h0 allowed; y: (Bz, S, di) f32; ckpt: null
-// (serving: nothing more is written), or (Bz, ceil(S / kTile), di, ds) f32
-// for the state entering every kTile-th step (grad mode: the backward's
+// (serving: nothing more is written), or (Bz, ceil(S / kCkpt), di, ds) f32
+// for the state entering every kCkpt-th step (grad mode: the backward's
 // checkpoints; S = 1 then runs ssm_kernel); ckpt_steps: the caller's
-// interval between checkpoints, which must be kTile when ckpt is given; ds
+// interval between checkpoints, which must be kCkpt when ckpt is given; ds
 // 8 or 16; all contiguous and 16-byte aligned on the device.  Returns the
 // launch's cudaError_t (0 when it was accepted).
 extern "C" int ssm_scan(const void* u, const void* dt, const void* A_log,
@@ -357,7 +369,7 @@ extern "C" int ssm_scan(const void* u, const void* dt, const void* A_log,
                         const void* h0, void* y, void* h_out, void* ckpt, int Bz,
                         int S, int di, int ds, int dtype, int ckpt_steps, void* stream) {
   if (Bz <= 0 || Bz > 65535 || S <= 0 || di <= 0) return cudaErrorInvalidValue;
-  if (ckpt != nullptr && ckpt_steps != kTile) return cudaErrorInvalidValue;
+  if (ckpt != nullptr && ckpt_steps != kCkpt) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_ds<float>(u, dt, A_log, B, C, D, h0, y, h_out, ckpt, Bz, S, di, ds, st);

@@ -49,20 +49,21 @@ struct Shape {
   static constexpr int TILE = C * LD;  // one staged (C x HDP) array
 };
 
-// One thread's share of a (C x HDP) chunk of rows of hd (tn of them valid),
-// loaded before it is stored so that all of a block's loads are in flight
-// at once: 16 bytes of T a load where `vec` (hd a multiple of 16 bytes of T,
-// src 16-byte aligned), zeros past tn and past hd.
-template <typename T, int HDP, int C>
+// One thread's share (of a block of NT threads) of a (C x HDP) chunk of rows
+// of hd (tn of them valid), loaded before it is stored so that all of a
+// block's loads are in flight at once: 16 bytes of T a load where `vec` (hd
+// a multiple of 16 bytes of T, src 16-byte aligned), zeros past tn and past
+// hd.
+template <typename T, int HDP, int C, int NT = kThreads>
 struct Rows {
   static constexpr int G = 16 / sizeof(T), GPR = HDP / G;
-  static constexpr int IT = (C * GPR + kThreads - 1) / kThreads;
+  static constexpr int IT = (C * GPR + NT - 1) / NT;
   float x[IT][G];
 
   __device__ __forceinline__ void load(const T* __restrict__ src, int tn, int hd, bool vec) {
 #pragma unroll
     for (int it = 0; it < IT; ++it) {
-      const int idx = threadIdx.x + it * kThreads;
+      const int idx = threadIdx.x + it * NT;
       const int t = idx / GPR, c0 = (idx % GPR) * G;
       if (vec && t < tn && c0 + G <= hd) {
         load16(src + (size_t)t * hd + c0, x[it]);
@@ -80,7 +81,7 @@ struct Rows {
     constexpr int LD = Shape<HDP, C>::LD;
 #pragma unroll
     for (int it = 0; it < IT; ++it) {
-      const int idx = threadIdx.x + it * kThreads;
+      const int idx = threadIdx.x + it * NT;
       if (idx >= C * GPR) break;
       const int t = idx / GPR, c0 = (idx % GPR) * G;
 #pragma unroll
@@ -93,10 +94,11 @@ struct Rows {
 };
 
 // In place: each column of cum (C x LD) becomes its inclusive cumulative
-// sum, C lanes a column (a scan by shuffles), all columns at once.
-template <int HDP, int C>
+// sum, C lanes a column (a scan by shuffles), all columns at once, by a
+// block of NT threads.
+template <int HDP, int C, int NT = kThreads>
 __device__ __forceinline__ void cumsum_columns(float* cum) {
-  constexpr int LD = Shape<HDP, C>::LD, CPW = 32 / C, NW = kThreads / 32;
+  constexpr int LD = Shape<HDP, C>::LD, CPW = 32 / C, NW = NT / 32;
   const int lane = threadIdx.x % 32, t = lane % C;
   static_assert(HDP % (NW * CPW) == 0, "columns do not share out over the warps");
 #pragma unroll

@@ -9,9 +9,9 @@ and autograd over :func:`ref.ssm_scan_ref`.  It starts from the states that
 the forward kernel kept every ``CHECKPOINT`` steps
 (:func:`ops.ssm_scan_fwd`) and recomputes the rest.  A call is two launches
 on one stream: the reverse walk, which writes the per-channel gradients and
-per-block partial sums, then the sums of the partials in a fixed order (no
-atomics: the result is the same bits from call to call); ``launches``
-counts calls.
+one partial sum of dB and dC a block of channels, then the sums of the
+partials in a fixed order (no atomics: the result is the same bits from
+call to call); ``launches`` counts calls.
 """
 from __future__ import annotations
 
@@ -27,10 +27,10 @@ from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
 # nowhere else
 launches = 0
 
-THREADS = 128                     # threads a block of the walk
+THREADS = 256                     # threads a block of the walk
 # steps between the states the forward keeps; the kernels are built for this
 # one (csrc/ssm_checkpoint.cuh) and refuse another
-CHECKPOINT = 16
+CHECKPOINT = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 19 + [_I] * 6 + [_P]

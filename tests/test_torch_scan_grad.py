@@ -130,9 +130,12 @@ def test_backward_wrappers_reject_gradients_of_another_shape():
                             torch.zeros(3, 8, 7))
 
 
-@pytest.mark.parametrize("S,chunks", [(1, 1), (16, 1), (17, 2), (512, 32),
-                                      (131, 9)])
+@pytest.mark.parametrize("S,chunks", [(1, 1), (16, 2), (17, 3), (512, 64),
+                                      (131, 17)])
 def test_checkpoints_every_16_steps(S, chunks):
+    """The forward keeps the state entering every ``CHECKPOINT`` steps, now
+    8 (two a 16-step tile; 16 until the backward kept its decays)."""
+    assert sbwd.CHECKPOINT == 8
     assert sbwd.checkpoint_shape(2, S, 16384, 16) == (2, chunks, 16384, 16)
 
 
@@ -149,9 +152,9 @@ def test_the_checkpoint_interval_is_the_one_the_kernels_are_built_for():
 
 
 def test_blocks_per_row_of_the_ssm_backward():
-    assert sbwd.blocks_per_row(16384, 16) == 512      # 32 channels a block
-    assert sbwd.blocks_per_row(16384, 8) == 256       # 64 channels a block
-    assert sbwd.blocks_per_row(100, 8) == 2
+    assert sbwd.blocks_per_row(16384, 16) == 256      # 64 channels a block
+    assert sbwd.blocks_per_row(16384, 8) == 128       # 128 channels a block
+    assert sbwd.blocks_per_row(100, 8) == 1
 
 
 def test_train_card_param_count_matches_jax():

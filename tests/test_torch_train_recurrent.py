@@ -237,13 +237,20 @@ def test_dlogw_closed_form_in_f32_against_f64(logw_value, rel, rel_direct):
     assert err_direct <= rel_direct * scale
 
 
-def _wkv_bwd_chunked(r, k, v, logw, u, s0, dout, dstate, C=32):
+def _wkv_bwd_chunked(r, k, v, logw, u, s0, dout, dstate, C=32, sub=None):
     """The WKV backward as ``csrc/rwkv6_scan_bwd.cu`` computes it, in
     PyTorch and in the inputs' dtype: chunks of C steps, the state entering
     each chunk, the chunk's own dG, the reverse pass over chunks (G_end and
     Q = sum_v S_in o G_end), then per chunk dr, dk, dv and dlogw expanded
     term by term, the adjacent-step terms (decay 1) left out of the
-    in-chunk sums that feed dlogw."""
+    in-chunk sums that feed dlogw.
+
+    ``sub``: None takes every in-chunk decay directly (the kernel's first
+    form); an int is the kernel's sub-block form: pairs within one block of
+    ``sub`` steps directly, pairs across blocks with the decay split at the
+    earlier block's last step p, the far sums of dr as sum_i M[t, i] kq_i
+    times e^{cum_ex_t - cum_p}, those of dk as e^{cum_p - cum_t} times
+    sum_s M[s, t] rq_s, and A across blocks as rq . kq."""
     N, S_, hd = r.shape
     nc = -(-S_ // C)
     pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, nc * C - S_))
@@ -268,6 +275,7 @@ def _wkv_bwd_chunked(r, k, v, logw, u, s0, dout, dstate, C=32):
         G = torch.exp(decay[c])[:, :, None] * G + dg[c]
     tri = torch.tril(torch.ones(C, C, dtype=r.dtype), -1)
     near = torch.diag(torch.ones(C - 1, dtype=r.dtype), -1)
+    far = tri - near                                # i < t - 1
     grads = [torch.zeros_like(r) for _ in range(4)]
     for c in range(nc):                             # launch 3
         rc, kc, vc, dy, lw = (part(t, c) for t in (r, k, v, dout, logw))
@@ -277,14 +285,19 @@ def _wkv_bwd_chunked(r, k, v, logw, u, s0, dout, dstate, C=32):
         Mtt = torch.diagonal(M, dim1=1, dim2=2)[..., None]
         E = torch.exp((cum_ex[:, :, None] - cum[:, None, :]).clamp(max=0))
         tr = M[..., None] * kc[:, None] * E                 # (n, t, i, kk)
-        drin = torch.exp(cum_ex) * torch.einsum("nkj,ntj->ntk", s_in[c], dy)
-        dr_far = (tr * (tri - near)[..., None]).sum(2)
-        dr = drin + dr_far + (tr * near[..., None]).sum(2) + u[:, None] * kc * Mtt
         tk = M[..., None] * rc[:, :, None] * E              # (n, s, t, kk)
-        dk_far = (tk * (tri - near)[..., None]).sum(1)
+        direct = far if sub is None else far * _same_block(C, sub, r.dtype)
+        dr_far = (tr * direct[..., None]).sum(2)
+        dk_far = (tk * direct[..., None]).sum(1)
+        A = torch.einsum("nsk,ntk,nstk->nst", rc, kc, E) * (
+            tri if sub is None else tri * _same_block(C, sub, r.dtype))
+        if sub is not None:
+            dr_c, dk_c, A_c = _across_blocks(rc, kc, M * far, cum, cum_ex, sub)
+            dr_far, dk_far, A = dr_far + dr_c, dk_far + dk_c, A + A_c
+        drin = torch.exp(cum_ex) * torch.einsum("nkj,ntj->ntk", s_in[c], dy)
+        dr = drin + dr_far + (tr * near[..., None]).sum(2) + u[:, None] * kc * Mtt
         dkend = torch.exp(cend - cum) * torch.einsum("nkj,ntj->ntk", g_end[c], vc)
         dk = dkend + dk_far + (tk * near[..., None]).sum(1) + rc * u[:, None] * Mtt
-        A = torch.einsum("nsk,ntk,nstk->nst", rc, kc, E) * tri
         bonus = (rc * u[:, None] * kc).sum(-1, keepdim=True)
         dv = torch.einsum("ntk,nkj->ntj", kc * torch.exp(cend - cum), g_end[c]) \
             + torch.einsum("nst,nsj->ntj", A, dy) + bonus * dy
@@ -301,25 +314,66 @@ def _wkv_bwd_chunked(r, k, v, logw, u, s0, dout, dstate, C=32):
     return [g[:, :S_] for g in grads] + [du, G]
 
 
+def _same_block(C, sub, dtype):
+    """(C, C) ones where steps t and i lie in one block of ``sub`` steps."""
+    blk = torch.arange(C) // sub
+    return (blk[:, None] == blk[None, :]).to(dtype)
+
+
+def _across_blocks(rc, kc, Mf, cum, cum_ex, sub):
+    """The in-chunk sums over pairs in different blocks of ``sub`` steps, as
+    the kernel forms them: (dr's far terms, dk's far terms, A).  Mf: M with
+    the pairs i >= t - 1 zeroed.  The decay of a pair (t, i) splits at p,
+    the last step of i's block: e^{cum_ex_t - cum_p} e^{cum_p - cum_i}."""
+    n, C, hd = rc.shape
+    nb = C // sub
+    blk = torch.arange(C) // sub
+    last = cum[:, sub - 1::sub]                                 # (n, nb, kk)
+    ek = torch.exp((last[:, blk] - cum).clamp(max=0))           # to p, i's block's end
+    kq = kc * ek
+    F = torch.exp((cum_ex[:, :, None] - last[:, None]).clamp(max=0))  # (n, t, J, kk)
+    later = (blk[:, None] > torch.arange(nb)[None]).to(rc.dtype)      # (t, J): J before t's
+    P = torch.einsum("ntjs,njsk->ntjk", Mf.view(n, C, nb, sub),
+                     kq.view(n, nb, sub, hd))          # sum over i in block J
+    dr = (F * P * later[None, :, :, None]).sum(2)
+    rq = (rc[:, :, None] * F)[:, :, blk]               # (n, s, t, kk): decayed from t's p
+    across = later[:, blk]                             # (s, t): s in a later block than t
+    dk = ek * torch.einsum("nst,nstk->ntk", Mf * across, rq)
+    A = torch.einsum("nstk,ntk->nst", rq, kq) * across
+    return dr, dk, A
+
+
+# the kernel's first form (every in-chunk decay taken directly) and its
+# sub-block form (blocks of 8 steps, the one csrc/rwkv6_scan_bwd.cu runs)
+FORMS = {"direct": None, "sub_block": 8}
+
+
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("N,S_,hd,logw_value", [
     (3, 45, 8, None), (2, 64, 16, -8.0), (2, 33, 4, -1e-6), (1, 1, 8, None)])
-def test_the_kernels_chunked_backward_is_exact_in_f64(N, S_, hd, logw_value):
+def test_the_kernels_chunked_backward_is_exact_in_f64(N, S_, hd, logw_value,
+                                                      form):
     """The backward kernel's algorithm (chunks of 32, ragged last chunk,
-    the dlogw expansion) equals the reverse recurrence in f64."""
+    the dlogw expansion, in either form) equals the reverse recurrence in
+    f64."""
     xs = _torch(_wkv_inputs(N, S_, hd, seed=6, logw_value=logw_value))
     want = kref.rwkv6_scan_bwd_ref(*xs)
-    for g, w in zip(_wkv_bwd_chunked(*xs), want):
+    for g, w in zip(_wkv_bwd_chunked(*xs, sub=FORMS[form]), want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-10, rtol=0)
 
 
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("logw_value,rel", [(-8.0, 1e-6), (-1e-6, 1e-5)])
-def test_the_kernels_dlogw_keeps_its_digits_in_f32(logw_value, rel):
+def test_the_kernels_dlogw_keeps_its_digits_in_f32(logw_value, rel, form):
     """In f32, at N 4, S 512, hd 64, the kernel's dlogw is 1.4e-8 off f64
-    at logw = -8 (|dlogw| up to 0.043: 3.3e-7 of it, where the closed form
-    is 2.8e-3 of it off) and 2.1e-2 at -1e-6 (|dlogw| up to 8.0e3: 2.6e-6
-    of it); ``rel`` bounds the error as a share of dlogw's largest value."""
+    at logw = -8 in the direct form and 1.2e-8 in the sub-block form
+    (|dlogw| up to 0.043: 3.3e-7 and 2.9e-7 of it, where the closed form
+    is 2.8e-3 of it off) and 2.1e-2 at -1e-6 in both (|dlogw| up to 8.0e3:
+    2.6e-6 of it); ``rel`` bounds the error as a share of dlogw's largest
+    value."""
     xs = _wkv_inputs(4, 512, 64, seed=5, logw_value=logw_value)
     exact = kref.rwkv6_scan_bwd_ref(*_torch(xs))[3]
-    got = _wkv_bwd_chunked(*(t.float() for t in _torch(xs)))[3]
+    got = _wkv_bwd_chunked(*(t.float() for t in _torch(xs)),
+                           sub=FORMS[form])[3]
     err = (got.double() - exact).abs().max().item()
     assert err <= rel * exact.abs().max().item()
