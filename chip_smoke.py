@@ -72,7 +72,16 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    products in f32 from the same weights, at the f32 tolerance, and (b) in
    bf16 as served, against the bf16 prefill's own distance from the f32
    one; and (c) that each request served in a 2-slot batch gets the
-   logits it gets alone.
+   logits it gets alone;
+10. run DilatedVGG, the paper's network (``FULL``: 1024 x 2048, every
+   published width, bf16, random weights from a seed), batch 1, through
+   ``api.forward``: the forward's device ms and each layer's by its config
+   name, beside their bounds, and one profiled forward's idle share; its
+   bf16 logits against its f32 ones (2e-2 relative RMS); f32 on the card
+   against the CPU at 128 x 256 (2e-3); three bf16 train steps through
+   ``launch/steps.make_train_step`` (the loss finite) and one f32 step at
+   128 x 256 against the CPU's (loss, every gradient, the params after
+   it).  No kernel of the port is on this path: cuDNN convolves.
 
 The last line is ``{"ok": true, "device": {...}}``; ``--out`` also writes
 every number of the run to a JSON file.  The script needs a CUDA
@@ -1538,6 +1547,381 @@ def phase_mixer_vs_cpu(torch, cfg, device, kernels, adamw, batch=1,
     return dict(grad_errs=errs, card_s=secs["cuda"], cpu_s=secs["cpu"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: DilatedVGG, the paper's network, at 1024 x 2048
+# ---------------------------------------------------------------------------
+
+
+def layer_costs(cfg, batch: int = 1, itemsize: int = 2) -> list:
+    """[(layer, output (C, H, W), operations, bytes)] of each layer of a
+    convnet at its input size.  Operations: a convolution's multiply-adds
+    (two each) at every output, the padded taps included; the pools and the
+    resize count by their bytes.  Bytes: the layer's input and params read
+    once, its output written once."""
+    net = cfg.convnet
+    (h, w), c = net.in_hw, net.in_ch
+    out = []
+    for lay in net.layers:
+        conv = lay.kind in ("conv", "dense")
+        if lay.kind == "upsample":
+            oh, ow = h * lay.stride, w * lay.stride
+        else:
+            oh, ow = -(-h // lay.stride), -(-w // lay.stride)
+        oc = lay.out_ch if conv else c
+        flops = 2 * batch * oh * ow * oc * c * lay.kernel ** 2 if conv else 0
+        n_params = (lay.kernel ** 2 * c + 1) * oc if conv else 0
+        nbytes = itemsize * (batch * (h * w * c + oh * ow * oc) + n_params)
+        out.append((lay, (oc, oh, ow), flops, nbytes))
+        h, w, c = oh, ow, oc
+    return out
+
+
+def profiled_kernels(torch, fn, n: int) -> dict:
+    """{kernel: (device µs, launches)} over ``n`` calls of ``fn`` by
+    torch.profiler, after one call under the profiler that is not counted:
+    a session can miss the device's first kernels.  Each call is a
+    ``ProfilerStep`` range, which is no kernel."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=n),
+                 acc_events=True) as prof:
+        for _ in range(n + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return {k: v for k, v in device_kernels(prof).items()
+            if not k.startswith("ProfilerStep")}
+
+
+def _short(kernel: str, n: int = 70) -> str:
+    """A kernel's profiler name without its namespaces, cut to ``n``
+    characters (enough to tell PyTorch's elementwise functors apart)."""
+    return re.sub(r"void |at::native::|\(anonymous namespace\)::|c10::", "",
+                  kernel)[:n]
+
+
+def _relu_masks(torch, DVGG, cfg, params, image):
+    """Each convolution's pre-activation and relu pattern (``z > 0``) in a
+    forward of ``image`` through the port's layers, on the params' device."""
+    masks, pre = [], []
+    with torch.no_grad():
+        h = image.to(getattr(torch, cfg.compute_dtype)).permute(0, 3, 1, 2)
+        for lay in cfg.convnet.layers:
+            if lay.kind in ("conv", "dense"):
+                z = DVGG._conv(h, params[lay.name]["w"], params[lay.name]["b"],
+                               lay.stride, lay.dilation)
+                masks.append(z > 0)
+                pre.append(z)
+                h = torch.relu(z)
+            else:
+                h = DVGG.apply_layer(params, lay, h)
+    return masks, pre
+
+
+def _pinned_loss_and_grads(torch, DVGG, cfg, params, image, labels, masks):
+    """The convnet's loss, its gradient ({path: tensor}) and each
+    convolution's pre-activation, in f64 on the CPU, with each relu taking
+    the on/off pattern ``masks`` in place of its own.  relu's gradient jumps
+    at 0: where a pre-activation lies within rounding of it, two correct
+    evaluations may take it apart, and the gradient of each leaf then moves
+    by that pixel's whole share.  Pinning the pattern leaves a smooth
+    function to compare."""
+    p = {name: {k: t.detach().cpu().double().requires_grad_()
+                for k, t in leaf.items()} for name, leaf in params.items()}
+    h = image.cpu().double().permute(0, 3, 1, 2)
+    pre, i = [], 0
+    for lay in cfg.convnet.layers:
+        if lay.kind in ("conv", "dense"):
+            z = DVGG._conv(h, p[lay.name]["w"], p[lay.name]["b"], lay.stride,
+                           lay.dilation)
+            pre.append(z.detach())
+            h = z * masks[i].cpu()
+            i += 1
+        else:
+            h = DVGG.apply_layer(p, lay, h)
+    logp = torch.log_softmax(h.permute(0, 2, 3, 1), dim=-1)
+    loss = -logp.gather(-1, labels.cpu().long()[..., None]).mean()
+    names = [(name, k) for name in p for k in p[name]]
+    grads = torch.autograd.grad(loss, [p[name][k] for name, k in names])
+    return (loss.item(), {f"/{name}/{k}": g for (name, k), g in
+                          zip(names, grads)}, pre)
+
+
+def phase_dilated_vgg(torch, cfg, device, api, steps, adamw, OptimizerConfig,
+                      kernels, reps=7, small_hw=(128, 256), train_steps=3):
+    """DilatedVGG (``cfg``: FULL, bf16) through the port's entry points on
+    the card, random params from seed 0 (biases drawn too: the init's are
+    zero), batch 1.  (a) ``api.forward``: device ms of the whole forward
+    (each timed batch behind ``torch.cuda._sleep``) and of each layer
+    (CUDA events around ``apply_layer``, every pass enqueued behind a sleep
+    that covers it), each beside its bound; the kernels each layer
+    launches; profiled forwards' device ops and idle share.  (b) the
+    bf16 logits within 2e-2 relative RMS of the same params' f32 forward.
+    (c) f32 on the card and on the CPU at ``small_hw`` (every channel
+    width) to 2e-3.  (d) ``train_steps`` bf16 train steps at full size
+    and two more, the last profiled, the loss finite; one f32 step at
+    ``small_hw`` on the card and on the CPU: the losses agree, the card's
+    gradient agrees leaf by leaf (2e-3 of the leaf's largest) with the
+    CPU's in f64 under the card's relu pattern (every relu the two take
+    apart lies within 1e-4 of its layer's largest pre-activation: a tie,
+    not an error), and the card's params after the step equal the CPU's
+    AdamW on the card's gradient to 1e-6.  No kernel of the port runs."""
+    from repro_torch.models import dilated_vgg as DVGG
+
+    net = cfg.convnet
+    H, W = net.in_hw
+    layers = net.layers
+    out = {}
+    reset_counts(kernels)
+    params = api.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg)
+    gen = torch.Generator(device=device).manual_seed(1)
+    for leaf in params.values():
+        leaf["b"].copy_(0.1 * torch.randn(leaf["b"].shape, generator=gen,
+                                          device=device))
+    image = torch.randn((1, H, W, net.in_ch), generator=gen, device=device)
+    batch = {"image": image}
+    n_params = sum(t.numel() for t in _leaves(params))
+    costs = layer_costs(cfg)
+    flops = sum(c[2] for c in costs)
+    nbytes = sum(c[3] for c in costs)
+    bound_ms = sum(_bound(b, f, "bfloat16")["bound_ms"]
+                   for _, _, f, b in costs)
+    print(f"  {cfg.name} {H} x {W}, {n_params:,} {cfg.param_dtype} params, "
+          f"{flops / 1e12:.4f} TFLOP and {nbytes / 1e9:.4f} GB a forward "
+          f"(layer by layer), bound {bound_ms:.4f} ms", flush=True)
+
+    # ---- (a) the forward
+    with torch.no_grad():
+        logits, _ = api.forward(params, cfg, batch)
+        check(tuple(logits.shape) == (1, H, W, net.num_classes)
+              and logits.dtype == torch.bfloat16
+              and bool(torch.isfinite(logits).all()),
+              f"forward gave {tuple(logits.shape)} {logits.dtype}")
+        ms, wall = time_ms(torch, lambda: api.forward(params, cfg, batch),
+                           reps=reps, inner=5)
+
+        def layer_pass():
+            """Each layer's pair of events and its input."""
+            h = image.to(torch.bfloat16).permute(0, 3, 1, 2)
+            evs, ins = [], []
+            for lay in layers:
+                ins.append(h)
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                e[0].record()
+                h = DVGG.apply_layer(params, lay, h)
+                e[1].record()
+                evs.append(e)
+            return evs, ins
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        layer_pass()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        cycles = int((2 * host_ms + 0.2) * _cycles_per_ms(torch))
+        per = {lay.name: [] for lay in layers}
+        for _ in range(reps):
+            torch.cuda._sleep(cycles)
+            evs, _ = layer_pass()
+            torch.cuda.synchronize()
+            for lay, (a, b) in zip(layers, evs):
+                per[lay.name].append(a.elapsed_time(b))
+        layer_ms = {k: sorted(v)[len(v) // 2] for k, v in per.items()}
+        _, inputs = layer_pass()
+        rows = []
+        print(f"  forward: {ms:.4f} ms device ({1e3 / ms:.1f} images/s), "
+              f"{wall:.4f} ms wall; bound {bound_ms:.4f} ms "
+              f"({ms / bound_ms:.2f}x)")
+        for (lay, shape, f, b), x_in in zip(costs, inputs):
+            kern = {_short(k): us / n for k, (us, n) in profiled_kernels(
+                torch, functools.partial(DVGG.apply_layer, params, lay, x_in),
+                3).items()}
+            row = dict(name=lay.name, kind=lay.kind, dilation=lay.dilation,
+                       out=shape, ms=layer_ms[lay.name], flops=f, bytes=b,
+                       kernels_us=kern, **_bound(b, f, "bfloat16"))
+            rows.append(row)
+            print(f"  {lay.name:9s} {lay.kind:8s} d={lay.dilation} out "
+                  f"{shape[0]:4d} x {shape[1]:4d} x {shape[2]:4d}: "
+                  f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}, {row['ms'] / row['bound_ms']:.2f}x), "
+                  f"{f / 1e9:.1f} GFLOP, {b / 1e6:.1f} MB; "
+                  + ", ".join(f"{k} {v:.1f} us" for k, v in kern.items()),
+                  flush=True)
+        del inputs
+        sum_ms = sum(layer_ms.values())
+        print(f"  sum of the layers {sum_ms:.4f} ms against the whole "
+              f"forward's {ms:.4f} ms")
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.forward(params, cfg, batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        fwd_wall = sorted(walls)[len(walls) // 2]
+        kern = {k: (us / 5 / 1e3, n / 5) for k, (us, n) in profiled_kernels(
+            torch, lambda: api.forward(params, cfg, batch), 5).items()}
+        dev_ms = sum(v[0] for v in kern.values())
+        ops = sum(v[1] for v in kern.values())
+        print(f"  profiled forward: {fwd_wall:.3f} ms host wall, {dev_ms:.4f} "
+              f"ms device, {ops:.0f} device ops; device idle "
+              f"{1 - dev_ms / fwd_wall:.1%}")
+        for k, (kms, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]:
+            print(f"    {kms:8.4f} ms {n:4.0f}x  {_short(k, 100)}")
+        out["forward"] = dict(
+            ms=ms, wall_ms=wall, images_s=1e3 / ms, bound_ms=bound_ms,
+            flops=flops, bytes=nbytes, layers=rows, layers_sum_ms=sum_ms,
+            profiled_wall_ms=fwd_wall, profiled_device_ms=dev_ms,
+            device_ops=ops, idle=1 - dev_ms / fwd_wall,
+            top=sorted(((k, v[0], v[1]) for k, v in kern.items()),
+                       key=lambda r: -r[1])[:10])
+
+        # ---- (b) bf16 against f32, the same params
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32")
+        p32 = {n: {k: t.float() for k, t in leaf.items()}
+               for n, leaf in params.items()}
+        logits32, _ = api.forward(p32, cfg32, batch)
+        rel = _rel_rms(logits, logits32)
+        ms32, _ = time_ms(torch, lambda: api.forward(p32, cfg32, batch),
+                          reps=3, inner=2)
+        print(f"  (b) bf16 logits against f32: relative RMS {rel:.4e} (limit "
+              f"2e-2); |logits| up to {logits32.abs().max().item():.3f}; the "
+              f"f32 forward {ms32:.3f} ms device (TF32 off)", flush=True)
+        check(rel <= 2e-2, f"bf16 logits {rel} from f32")
+        out["bf16_vs_f32_rel_rms"] = rel
+        out["f32_forward_ms"] = ms32
+        del logits, logits32
+
+        # ---- (c) card against CPU, f32, every channel width
+        small = dataclasses.replace(cfg32, convnet=dataclasses.replace(
+            net, in_hw=small_hw))
+        cpu = torch.device("cpu")
+        cgen = torch.Generator().manual_seed(2)
+        img = torch.randn((1,) + small_hw + (net.in_ch,), generator=cgen)
+        cpu_p = _to(torch, p32, cpu)
+        want, _ = api.forward(cpu_p, small, {"image": img})
+        got, _ = api.forward(p32, small, {"image": img.to(device)})
+        err = (got.cpu() - want).abs().max().item()
+        print(f"  (c) f32 at {small_hw[0]} x {small_hw[1]}: card against CPU "
+              f"max |diff| {err:.3e} (limit 2e-3), |logits| up to "
+              f"{want.abs().max().item():.3f}", flush=True)
+        check(tuple(got.shape) == (1,) + small_hw + (net.num_classes,)
+              and err <= 2e-3, f"card and CPU forwards differ by {err}")
+        out["card_vs_cpu_err"] = err
+
+    # ---- (d) training: bf16 at full size
+    opt_cfg = OptimizerConfig(lr=3e-4, warmup_steps=5, total_steps=30)
+    labels = torch.randint(0, net.num_classes, (1, H, W), generator=gen,
+                           device=device, dtype=torch.int32)
+    step = steps.make_train_step(cfg, opt_cfg, remat="none")
+    state = adamw.init_opt_state(params, opt_cfg)
+    tbatch = {"image": image, "labels": labels}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    walls, losses = [], []
+
+    def train_step():
+        nonlocal params, state
+        params, state, met = step(params, state, tbatch)
+        losses.append(float(met["loss"]))
+
+    for _ in range(train_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    kern = profiled_kernels(torch, train_step, 1)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rest = sorted(walls[1:])
+    step_ms = rest[len(rest) // 2]
+    dev_ms = sum(us for us, _ in kern.values()) / 1e3
+    n_ops = sum(n for _, n in kern.values())
+    print(f"  (d) train, bf16, B=1 at {H} x {W}: losses {losses}; step "
+          f"{step_ms:.2f} ms host wall (first {walls[0]:.1f} ms); profiled "
+          f"step {dev_ms:.3f} ms device, {n_ops} device ops, device idle "
+          f"{1 - dev_ms / step_ms:.1%}; peak {peak_gb:.2f} GB with "
+          f"{held_gb:.2f} GB held before", flush=True)
+    for k, (us, n) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"    {us / 1e3:8.4f} ms {n:4d}x  {_short(k, 100)}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    out["train"] = dict(losses=losses, step_ms=step_ms, walls_ms=walls,
+                        device_ms=dev_ms, device_ops=n_ops,
+                        idle=1 - dev_ms / step_ms, peak_gb=peak_gb,
+                        held_gb=held_gb)
+    del params, state, tbatch
+
+    # ---- (d) one f32 step at small_hw, card against CPU
+    img_s = torch.randn((1,) + small_hw + (net.in_ch,), generator=cgen)
+    lab_s = torch.randint(0, net.num_classes, (1,) + small_hw,
+                          generator=cgen, dtype=torch.int32)
+    res = {}
+    for where in ("cuda", "cpu"):
+        dev = device if where == "cuda" else cpu
+        here = _to(torch, cpu_p, dev)
+        _, st, met = steps.make_train_step(small, opt_cfg, remat="none")(
+            here, adamw.init_opt_state(here, opt_cfg),
+            {"image": img_s.to(dev), "labels": lab_s.to(dev)})
+        res[where] = dict(params=here, loss=float(met["loss"]),
+                          grad_norm=float(met["grad_norm"]),
+                          grads=_grads_of(adamw, st, opt_cfg.b1))
+    gpu, cpu_r = res["cuda"], res["cpu"]
+    masks, pre = _relu_masks(torch, DVGG, small, p32, img_s.to(device))
+    loss64, grads64, pre64 = _pinned_loss_and_grads(
+        torch, DVGG, small, cpu_p, img_s, lab_s, masks)
+    norm64 = sum(g.square().sum().item() for g in grads64.values()) ** 0.5
+    scale = min(1.0, opt_cfg.grad_clip / max(norm64, 1e-9))
+    grad_errs = _leaf_errs(gpu["grads"], {k: g * scale
+                                          for k, g in grads64.items()})
+    worst = max(grad_errs, key=grad_errs.get)
+    plain_errs = _leaf_errs(gpu["grads"], cpu_r["grads"])
+    plain_worst = max(plain_errs, key=plain_errs.get)
+    ties, tie_max = 0, 0.0
+    for m, z in zip(masks, pre64):
+        apart = m.cpu() != (z > 0)
+        ties += int(apart.sum())
+        if apart.any():
+            tie_max = max(tie_max, (z[apart].abs().max()
+                                    / z.abs().max()).item())
+    ref = _to(torch, cpu_p, cpu)
+    adamw.adamw_update(ref, adamw.tree_like(ref, {
+        k: g.cpu() for k, g in gpu["grads"].items()}),
+        adamw.init_opt_state(ref, opt_cfg), opt_cfg)
+    p_err = max((a.cpu() - b).abs().max().item() for a, b in
+                zip(adamw.leaves(gpu["params"]), adamw.leaves(ref)))
+    loss_rel = abs(gpu["loss"] - cpu_r["loss"]) / abs(cpu_r["loss"])
+    loss64_rel = abs(gpu["loss"] - loss64) / abs(loss64)
+    print(f"  (d) one f32 step at {small_hw[0]} x {small_hw[1]}: loss card "
+          f"{gpu['loss']!r} / CPU {cpu_r['loss']!r} / CPU f64 {loss64!r} "
+          f"(rel {loss_rel:.2e}, {loss64_rel:.2e}); grad norm "
+          f"{gpu['grad_norm']!r} / {cpu_r['grad_norm']!r} / {norm64!r}; "
+          f"gradient leaf by leaf against the CPU's in f64 under the card's "
+          f"relu pattern, max |diff| / max |ref|: worst {worst} "
+          f"{grad_errs[worst]:.3e}; against the CPU's f32 step: worst "
+          f"{plain_worst} {plain_errs[plain_worst]:.3e}; relus the card and "
+          f"f64 take apart: {ties} (largest |z| / layer max {tie_max:.2e}); "
+          f"params after the step against the CPU's AdamW on the card's "
+          f"gradient: max |diff| {p_err:.3e}", flush=True)
+    check(loss_rel <= 2e-3 and loss64_rel <= 2e-3,
+          "the card's loss and the CPU's disagree")
+    check(grad_errs[worst] <= 2e-3, "the card's gradient and the CPU's "
+          "(f64, the card's relu pattern) disagree")
+    check(tie_max <= 1e-4, f"a relu the card takes apart from f64 at |z| "
+          f"{tie_max} of its layer's largest")
+    check(p_err <= 1e-6, "the card's AdamW step and the CPU's disagree")
+    out["train_f32_vs_cpu"] = dict(
+        loss=(gpu["loss"], cpu_r["loss"], loss64), grad_errs=grad_errs,
+        grad_errs_vs_cpu_f32=plain_errs, relu_ties=ties,
+        relu_tie_max=tie_max, adamw_err=p_err)
+    launches = launches_of(kernels)
+    check(all(n == 0 for n in launches.values())
+          and all(ops.ref.calls == 0 for ops in kernels.values()),
+          f"DilatedVGG launched a kernel of the port: {launches}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, help="write every number here (JSON)")
@@ -1922,6 +2306,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print("== 9c. 2-slot server equals solo at full width, bf16", flush=True)
     solo_err_j = phase_server_solo(torch, np, jcfg, jparams, device, serve)
+    del jparams, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 10. DilatedVGG at 1024 x 2048, bf16 -------------------------------
+    vcfg = get_arch("dilated-vgg").model
+    print(f"== 10. {vcfg.name} at {vcfg.convnet.in_hw[0]} x "
+          f"{vcfg.convnet.in_hw[1]} in {vcfg.compute_dtype}: forward and its "
+          "layers, bf16 against f32, card against CPU, training", flush=True)
+    dvgg = phase_dilated_vgg(torch, vcfg, device, api, steps, adamw,
+                             OptimizerConfig, kernels)
 
     # ---- summary ---------------------------------------------------------
     launches = {"decode_attention": served["launches"]["decode_attention"],
@@ -1978,7 +2373,7 @@ def main(argv=None) -> int:
                        "peak_gb": peak_gb, "held_gb": held_gb},
              "serve_jamba": served_j, "profile_jamba": prof_j,
              "prefill_jamba_f32": pre_j32, "prefill_jamba": pre_j,
-             "server_solo_err_jamba": solo_err_j,
+             "server_solo_err_jamba": solo_err_j, "dilated_vgg": dvgg,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -3,9 +3,9 @@
 The port's own copy of the dataclasses and the architecture registry of
 ``repro.core.config``: the port imports nothing of the JAX package, so the
 fields it reads are kept here with the same names and defaults, and so are
-the optimizer and training configs.  Sub-configs
-of families the port does not run yet (frontends, convnets) stay as
-``Optional`` fields that hold ``None`` in every registered config.
+the optimizer and training configs.  The sub-config
+of a family the port does not run yet (the modality frontend) stays an
+``Optional`` field that holds ``None`` in every registered config.
 """
 from __future__ import annotations
 
@@ -74,6 +74,26 @@ class RWKVConfig:
 
 
 @dataclass(frozen=True)
+class ConvLayerConfig:
+    name: str
+    kind: str                       # "conv" | "pool" | "dense" | "upsample"
+    in_ch: int = 0
+    out_ch: int = 0
+    kernel: int = 3
+    stride: int = 1
+    dilation: int = 1
+    # dense layers are 1x1 convs over the feature map in DilatedVGG-style nets
+
+
+@dataclass(frozen=True)
+class ConvNetConfig:
+    layers: Tuple[ConvLayerConfig, ...] = ()
+    in_hw: Tuple[int, int] = (1024, 2048)
+    in_ch: int = 3
+    num_classes: int = 19
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
     family: str = "dense"
@@ -85,9 +105,10 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
-    # families the port does not run yet; None in every registered config
+    # the modality frontend (VLM, audio) is not ported yet: None in every
+    # registered config
     frontend: Optional[Any] = None
-    convnet: Optional[Any] = None
+    convnet: Optional[ConvNetConfig] = None
     attn_every: int = 0
     encoder_layers: int = 0
     act: str = "swiglu"             # "swiglu" | "gelu" | "relu2"
@@ -124,6 +145,27 @@ class ModelConfig:
             else:
                 kinds.append("dense")
         return kinds
+
+
+# ---------------------------------------------------------------------------
+# Shape cells
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                       # "train" | "prefill" | "decode"
+
+
+LM_SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 # ---------------------------------------------------------------------------

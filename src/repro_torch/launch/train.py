@@ -15,7 +15,9 @@ its own (a cut of a registered one, such as jamba's ``TRAIN_CARD``).  One
 device: there is no mesh and no activation sharding rules yet (ROADMAP.md,
 Queue 1 item 14).  The decoder-only text families train, the recurrent ones
 (RWKV-6, the Mamba hybrid) included; a VLM prefix and the audio / enc-dec
-batches are not ported (``NotImplementedError``).  On the card the
+batches are not ported (``NotImplementedError``); the convnet, fed images
+and not tokens, trains through ``launch/steps.make_train_step`` and is
+refused here (``ValueError``).  On the card the
 attention of a training step runs through the flash-attention kernel and
 its backward kernel, the WKV and selective scans through theirs.
 """
@@ -82,6 +84,10 @@ def main(argv=None, cfg=None):
     if cfg.family in ("audio", "encdec"):
         raise NotImplementedError("enc-dec training is not ported yet "
                                   "(ROADMAP.md, Queue 1 item 12)")
+    if cfg.family == "convnet":
+        raise ValueError("train.py feeds tokens, as the reference's does; "
+                         "a convnet trains through "
+                         "launch/steps.make_train_step")
     opt_cfg = OptimizerConfig(lr=args.lr, warmup_steps=args.warmup,
                               total_steps=args.steps,
                               grad_compression=args.grad_compression)

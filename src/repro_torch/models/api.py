@@ -9,6 +9,8 @@
   decode_step(params, cfg, state, tokens, pos)-> (logits, state)
   init_decode_state(cfg, batch, max_len)      -> TensorSpec tree
   allocate_decode_state(cfg, batch, max_len, device) -> zeroed cache tree
+  input_specs(cfg, shape)                     -> TensorSpec dict (allocates nothing)
+  model_flops(cfg, shape)                     -> 6*N*D (or 6*N_active*D)
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import math
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
-from repro_torch.core.config import ModelConfig
+from repro_torch.core.config import ModelConfig, ShapeConfig
+from repro_torch.models import dilated_vgg as DVGG
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 from repro_torch.models.attention import TensorSpec
@@ -30,9 +33,11 @@ _LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 def _mod(cfg: ModelConfig):
     if cfg.family in _LM_FAMILIES:
         return LM
+    if cfg.family == "convnet":
+        return DVGG
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported yet; the port runs "
-        f"{_LM_FAMILIES} (ROADMAP.md, Queue 1 items 12-13)")
+        f"{_LM_FAMILIES + ('convnet',)} (ROADMAP.md, Queue 1 item 12)")
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig):
@@ -86,3 +91,40 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int):
 
 def allocate_decode_state(cfg: ModelConfig, batch: int, max_len: int, device):
     return _mod(cfg).allocate_decode_state(cfg, batch, max_len, device)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """Inputs for the step function selected by ``shape.mode``:
+    train/prefill -> batch dict; decode -> {tokens, pos, state}."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if cfg.family == "convnet":
+        net = cfg.convnet
+        h, w = net.in_hw
+        return {"image": TensorSpec((B, h, w, net.in_ch),
+                                    L.dtype_of(cfg.compute_dtype)),
+                "labels": TensorSpec((B, h, w), i32)}
+    _mod(cfg)                  # raises for a family the port does not run
+    if cfg.frontend is not None and cfg.frontend.kind != "none":
+        raise NotImplementedError("modality prefixes are not ported yet")
+    if shape.mode in ("train", "prefill"):
+        return {"tokens": TensorSpec((B, S), i32)}
+    # decode: one new token against a cache of S positions
+    return {"tokens": TensorSpec((B,), i32), "pos": TensorSpec((), i32),
+            "state": init_decode_state(cfg, B, S)}
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """MODEL_FLOPS = 6*N*D (dense) / 6*N_active*D (MoE) for the step.
+
+    train: D = tokens processed (fwd+bwd = 6 N per token)
+    prefill: 2 N per token (fwd only)
+    decode: 2 N per generated token (D = batch tokens).
+    """
+    if cfg.family == "convnet":
+        return float("nan")
+    n_active = param_count(cfg, active_only=True)
+    tokens = shape.global_batch * (1 if shape.mode == "decode"
+                                   else shape.seq_len)
+    per_token = 6 * n_active if shape.mode == "train" else 2 * n_active
+    return float(per_token) * float(tokens)

@@ -30,7 +30,8 @@ def test_port_files_exist():
                  "models/ssm.py", "configs/jamba_1_5_large_398b.py",
                  "configs/granite_moe_1b_a400m.py", "kernels/ssm_scan/ops.py",
                  "optim/adamw.py", "launch/train.py", "data/pipeline.py",
-                 "runtime/supervisor.py", "checkpoint/manager.py"):
+                 "runtime/supervisor.py", "checkpoint/manager.py",
+                 "models/dilated_vgg.py", "configs/dilated_vgg.py"):
         assert f"src/repro_torch/{twin}" in names
     assert "chip_smoke.py" in names
 

@@ -23,9 +23,10 @@ from repro_torch.models import attention as tatt
 
 ARCHS = ["qwen1.5-0.5b", "minitron-8b"]
 # every arch the port registers (rwkv6's parity tests: test_torch_rwkv6.py;
-# jamba's: test_torch_jamba.py; granite-moe's: test_torch_moe.py)
+# jamba's: test_torch_jamba.py; granite-moe's: test_torch_moe.py;
+# dilated-vgg's: test_torch_dilated_vgg.py)
 PORTED_ARCHS = ARCHS + ["rwkv6-1.6b", "jamba-1.5-large-398b",
-                        "granite-moe-1b-a400m"]
+                        "granite-moe-1b-a400m", "dilated-vgg"]
 ATOL = 1e-4          # the reference's own bound is 2e-3 (test_models.py)
 B, T, MAX_LEN = 2, 12, 16
 

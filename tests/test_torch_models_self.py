@@ -61,8 +61,8 @@ def test_prefill_matches_forward(model):
 def test_unported_families_raise():
     """What the port does not run yet raises, pointing at ROADMAP.md: MLA
     (at init and at apply), the dense prefix blocks of an MoE stack,
-    enc-dec, audio, the convnet, and a VLM (its family, and a modality
-    frontend on a decoder)."""
+    enc-dec, audio, and a VLM (its family, and a modality frontend on a
+    decoder)."""
     cfg = Model("qwen1.5-0.5b").cfg
     mla = dataclasses.replace(cfg, attention=dataclasses.replace(
         cfg.attention, kind="mla"))
@@ -71,8 +71,7 @@ def test_unported_families_raise():
     prefix = dataclasses.replace(cfg, family="moe", moe=tconfig.MoEConfig(
         num_experts=4, d_ff_expert=64, first_k_dense=1))
     for bad in (mla, prefix) + tuple(dataclasses.replace(cfg, family=f)
-                                     for f in ("encdec", "audio", "convnet",
-                                               "vlm")):
+                                     for f in ("encdec", "audio", "vlm")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tapi.init_params(torch.Generator(), bad)
     params = tapi.init_params(torch.Generator().manual_seed(0), cfg)

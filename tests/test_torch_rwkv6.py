@@ -262,8 +262,8 @@ def test_params_convert_key_for_key_keeping_dtypes(param_dtype):
 
 
 def test_other_families_still_raise():
-    """Mamba and MoE run now; what still raises: MLA, the dense prefix
-    blocks in front of an MoE stack, enc-dec and audio, the convnet and a
+    """Mamba, MoE and the convnet run now; what still raises: MLA, the
+    dense prefix blocks in front of an MoE stack, enc-dec and audio, and a
     VLM frontend."""
     gen = torch.Generator().manual_seed(0)
     cfg = _f32(tconfig.get_arch("qwen1.5-0.5b").smoke)
@@ -272,8 +272,7 @@ def test_other_families_still_raise():
     prefix = dataclasses.replace(cfg, family="moe", moe=tconfig.MoEConfig(
         num_experts=4, d_ff_expert=64, first_k_dense=1))
     for bad in (mla, prefix) + tuple(dataclasses.replace(cfg, family=f)
-                                     for f in ("encdec", "audio", "convnet",
-                                               "vlm")):
+                                     for f in ("encdec", "audio", "vlm")):
         with pytest.raises(NotImplementedError, match="not ported"):
             tapi.init_params(gen, bad)
     with pytest.raises(NotImplementedError, match="not ported"):
