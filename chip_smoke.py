@@ -26,7 +26,14 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    autograd over their plain forwards, bit-equal to themselves and to the
    autograd path, at rwkv6's training shape (f32 and bf16, both decay
    extremes held to f64) and jamba's (u, B, C in bf16 and f32, a ragged
-   last checkpoint interval);
+   last checkpoint interval); deepseek-v2's absorbed MLA decode (128
+   heads, latent 512, rope 64) at B 1 and 4 over caches of 512, 4096 and
+   32768 positions, ragged lengths, the served step's 4 slots in a cache
+   of 128, and a smoke-like shape (bf16 held elementwise and by relative
+   RMS against the plain version's own rounding), and flash attention at
+   MLA's expanded shape (hd 192, hd_v 128, 128 heads) and at the smoke's
+   (24, 16), each beside SDPA on the same function and the list of SDPA's
+   backends that take it;
 3. serve 8 requests with the port's ``BatchedServer`` on qwen1.5-0.5b at
    full width (24 layers, d_model 1024, vocab 151,936, f32, random weights
    from a seed): every decode step must go through the decode kernel;
@@ -81,7 +88,20 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    against the CPU at 128 x 256 (2e-3); three bf16 train steps through
    ``launch/steps.make_train_step`` (the loss finite) and one f32 step at
    128 x 256 against the CPU's (loss, every gradient, the params after
-   it).  No kernel of the port is on this path: cuDNN convolves.
+   it).  No kernel of the port is on this path: cuDNN convolves;
+11. serve 8 requests (prompts of 16-64 tokens, 32 new tokens each, 4
+   slots) on deepseek-v2-236b cut to its first 4 layers at full width
+   (``CARD``: MLA with 128 heads over a 512-wide latent, a dense prefix
+   layer and 3 MoE layers of 160 experts top-6, vocab 102,400, bf16, about
+   13.3 B random parameters from a seed), admitted token by token: every
+   decode call runs the MLA decode kernel in each layer and flash
+   attention never; profile one decode step over the served cache and one
+   over a 32,768-position cache of random latents, and time one MoE FFN;
+   check prefill (flash attention at hd 192, hd_v 128) against
+   token-by-token decode (dropless MoE) in bf16 against bf16's own
+   rounding and, on the first 2 layers in f32, at 2e-3; and one MLA block
+   (prefill, then 8 decode steps) at full width in f32 on the card against
+   the CPU's plain versions at 2e-3.
 
 The last line is ``{"ok": true, "device": {...}}``; ``--out`` also writes
 every number of the run to a JSON file.  The script needs a CUDA
@@ -122,6 +142,16 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 # tests/test_kernels.py's tolerances
 TOL = {"float32": dict(atol=3e-5, rtol=0.0),
        "bfloat16": dict(atol=3e-2, rtol=1e-2)}
+# mla_decode in bf16: TOL["bfloat16"]'s rtol with about a quarter of its
+# atol.  The context is a softmax average of ~0.1-0.5 (RMS); on an H100 at
+# phase 2's shapes no element passed 1e-2 |want| by more than 4.7e-3 (the
+# served shape; the output's rounding, and P's at another running max), and
+# 8e-3 holds about twice the typical row's (each row records its
+# excess_over_rtol).  Besides, the relative RMS against the plain version
+# stays within twice the plain version's own from the same function in f32
+# (measured: 0.92-1.31 times it)
+MLA_BF16_TOL = dict(atol=8e-3, rtol=1e-2)
+MLA_BF16_RMS = 2.0
 # the flash-attention backward: tests/test_kernels.py's atol with its rtol
 # of 1e-2 in f32 too (a gradient sums products over every visible key)
 BWD_TOL = {"float32": dict(atol=3e-5, rtol=1e-2),
@@ -376,12 +406,32 @@ def decode_case(torch, F, dops, B, Hq, Hkv, S, hd, kv_len, dtype, gen):
         **_bound(nbytes, flops, dtype))
 
 
+def sdpa_backends(torch, library) -> dict:
+    """Which of SDPA's backends take the call ``library`` makes: "ok", or
+    the first line of the error with which one refused it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                library()
+            torch.cuda.synchronize()
+            out[backend.name] = "ok"
+        except RuntimeError as e:
+            out[backend.name] = "refused: " + str(e).strip().splitlines()[0][:120]
+    return out
+
+
 def flash_case(torch, F, fops, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
-               dtype, gen):
+               dtype, gen, hd_v=None):
+    """One flash-attention check + timings; ``hd_v`` (V's and the output's
+    width, MLA's 128 beside hd 192) defaults to hd."""
+    hd_v = hd if hd_v is None else hd_v
     dt = getattr(torch, dtype)
     q = torch.randn(B, Hq, Sq, hd, device="cuda", generator=gen).to(dt)
     k = torch.randn(B, Hkv, Sk, hd, device="cuda", generator=gen).to(dt)
-    v = torch.randn(B, Hkv, Sk, hd, device="cuda", generator=gen).to(dt)
+    v = torch.randn(B, Hkv, Sk, hd_v, device="cuda", generator=gen).to(dt)
     kw = dict(causal=causal, q_offset=q_offset)
     got = fops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -404,16 +454,88 @@ def flash_case(torch, F, fops, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
     else:
         pairs = Sq * Sk
     elem = q.element_size()
-    nbytes = (2 * B * Hq * Sq * hd + 2 * B * Hkv * Sk * hd) * elem
-    flops = 4.0 * B * Hq * pairs * hd
-    return dict(
+    nbytes = (B * Hq * Sq + B * Hkv * Sk) * (hd + hd_v) * elem
+    flops = 2.0 * B * Hq * pairs * (hd + hd_v)
+    row = dict(
         shape=(f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} hd={hd} "
-               f"causal={causal} q_offset={q_offset}"),
+               + (f"hd_v={hd_v} " if hd_v != hd else "")
+               + f"causal={causal} q_offset={q_offset}"),
         dtype=dtype, max_abs_err=err,
         **_timings(torch, lambda: fops.flash_attention(q, k, v, **kw),
                    lambda: fops.attention_ref(q, k, v, **kw), library),
         library_causal_ms=(time_ms(torch, library_causal)[0]
                            if causal and q_offset == 0 and Sq == Sk else None),
+        **_bound(nbytes, flops, dtype))
+    if hd_v != hd:
+        row["sdpa"] = sdpa_backends(torch, library)
+    return row
+
+
+def mla_case(torch, F, mops, B, H, L, R, T, kv_len, dtype, gen):
+    """One absorbed-MLA-decode check + timings.  The library call is SDPA on
+    the same function: the heads as the query rows of one KV head, q =
+    [q_abs | q_rope], k = [ckv | krope], v = ckv, the scale given and a
+    boolean mask (the concatenations made before the timing)."""
+    dt = getattr(torch, dtype)
+    q_abs = torch.randn(B, H, L, device="cuda", generator=gen).to(dt)
+    q_rope = torch.randn(B, H, R, device="cuda", generator=gen).to(dt)
+    ckv = torch.randn(B, T, L, device="cuda", generator=gen).to(dt)
+    krope = torch.randn(B, T, R, device="cuda", generator=gen).to(dt)
+    lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(192)          # deepseek-v2: nope 128 + rope 64
+    args = (q_abs, q_rope, ckv, krope, lens, scale)
+    got = mops.mla_decode(*args)
+    again = mops.mla_decode(*args)
+    torch.cuda.synchronize()
+    want = mops.mla_decode_ref(*args)
+    tol = TOL[dtype] if dtype == "float32" else MLA_BF16_TOL
+    err = _within(torch, got, want, tol)
+    excess = ((got.float() - want.float()).abs()
+              - tol["rtol"] * want.float().abs()).max().item()
+    check(torch.equal(got, again), "mla_decode differs from itself")
+    rms = {}
+    if dtype != "float32":
+        # the plain version's own bf16 rounding: its distance from the same
+        # function on the inputs cast to f32 (P unrounded)
+        want32 = mops.mla_decode_ref(*(a.float() if torch.is_tensor(a) and
+                                       a.is_floating_point() else a
+                                       for a in args))
+        rms = dict(rel_rms=_rel_rms(got, want),
+                   plain_vs_f32=_rel_rms(want, want32))
+        check(rms["rel_rms"] <= MLA_BF16_RMS * rms["plain_vs_f32"],
+              f"mla_decode: relative RMS {rms['rel_rms']:.3e} against the "
+              f"plain version, beyond {MLA_BF16_RMS} x its own bf16 rounding "
+              f"{rms['plain_vs_f32']:.3e}")
+
+    q = torch.cat([q_abs, q_rope], dim=-1)[:, None]          # (B, 1, H, L+R)
+    k = torch.cat([ckv, krope], dim=-1)[:, None]             # (B, 1, T, L+R)
+    v = ckv[:, None]
+    mask = (torch.arange(T, device="cuda")[None, :] < lens[:, None])
+    mask = mask[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              scale=scale)
+
+    elem = q_abs.element_size()
+    valid = sum(min(n, T) for n in kv_len)
+    nbytes = (valid * (L + R) + B * H * (2 * L + R)) * elem + 4 * B
+    flops = 2.0 * H * valid * (2 * L + R)
+    big = B * T >= 4 * 32768
+    # the bound takes the card's peak for the inputs' type (bf16 on the
+    # tensor cores); the kernel multiplies on the CUDA cores in f32 whatever
+    # the dtype, and their bound stands beside it
+    return dict(
+        shape=f"B={B} H={H} L={L} R={R} T={T} kv_len={kv_len}",
+        dtype=dtype, max_abs_err=err, excess_over_rtol=excess, **rms,
+        **_timings(torch, lambda: mops.mla_decode(*args),
+                   lambda: mops.mla_decode_ref(*args), library,
+                   plain_reps=(3, 3) if big else (7, 10)),
+        sdpa=sdpa_backends(torch, library),
+        nsplit=mops._num_splits(B, H, T, torch.cuda.get_device_properties(
+            0).multi_processor_count),
+        route="cuda_cores", rate="float32 FMA",
+        bound_cuda_cores_ms=_bound(nbytes, flops, "float32")["bound_ms"],
         **_bound(nbytes, flops, dtype))
 
 
@@ -804,6 +926,10 @@ def _print_row(name, row):
           + ("launch_us=" + ",".join(f"{k}:{v:.2f}" for k, v in
                                      row["launch_us"].items()) + " "
              if "launch_us" in row else "")
+          + (f"rel_rms={row['rel_rms']:.2e} (plain vs f32 "
+             f"{row['plain_vs_f32']:.2e}) " if "rel_rms" in row else "")
+          + (f"bound_cuda_cores_ms={row['bound_cuda_cores_ms']:.5f} "
+             if "bound_cuda_cores_ms" in row else "")
           + f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})", flush=True)
 
 
@@ -872,14 +998,20 @@ def phase_serve(torch, np, cfg, params, device, kernels, serve, slots=4,
 
 
 def phase_profile(torch, cfg, params, device, steps, api, slots=4,
-                  max_len=512, n=10):
+                  max_len=512, n=10, pos=(300, 200, 100, 50),
+                  random_cache=False):
     """Where one decode step's time goes: host wall time per step without
-    the profiler, and device kernel time per step from torch.profiler."""
+    the profiler, and device kernel time per step from torch.profiler.  The
+    slots decode at ``pos`` in a cache of ``max_len`` positions, zeros or
+    (``random_cache``) normal draws."""
     decode = steps.make_serve_step(cfg)
     st = api.allocate_decode_state(cfg, slots, max_len, device)
+    if random_cache:
+        gen = torch.Generator(device=device).manual_seed(4)
+        for leaf in _leaves(st):
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device=device))
     tokens = torch.arange(1, slots + 1, dtype=torch.int32, device=device)
-    pos = torch.tensor([300, 200, 100, 50][:slots], dtype=torch.int32,
-                       device=device)
+    pos = torch.tensor(pos[:slots], dtype=torch.int32, device=device)
 
     def step():
         nonlocal st
@@ -1922,6 +2054,112 @@ def phase_dilated_vgg(torch, cfg, device, api, steps, adamw, OptimizerConfig,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: deepseek-v2-236b's MLA, first 4 layers at full width, bf16
+# ---------------------------------------------------------------------------
+
+
+def _cast(tree, fn):
+    return {k: _cast(v, fn) for k, v in tree.items()} \
+        if isinstance(tree, dict) else fn(tree)
+
+
+def first_layers_f32(torch, params, n_layers: int):
+    """The first ``n_layers`` of a prefix-and-periods stack's params in f32:
+    the prefix block and the first ``n_layers - 1`` periods, with the
+    embedding, final norm and head."""
+    stack = params["stack"]
+    cut = {k: v for k, v in params.items() if k != "stack"}
+    cut["stack"] = {"prefix": stack["prefix"],
+                    "periods": _cast(stack["periods"],
+                                     lambda t: t[:n_layers - 1])}
+    return _cast(cut, lambda t: t.float() if t.is_floating_point() else t)
+
+
+def phase_mla_block(torch, cfg, params, device, kernels, batch=2, length=64,
+                    steps=8, tol=PREFILL_TOL):
+    """deepseek-v2's first block (MLA and the dense FFN) at full width in
+    f32: prefill of ``batch`` x ``length`` positions, then ``steps`` decode
+    steps at each row's next position, on the card (through K2 once and
+    mla_decode once a step) and on the CPU (the plain versions), from the
+    same weights; every output and the latent cache agree within ``tol``."""
+    from repro_torch.models import blocks as TB
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    blk = _cast(params["stack"]["prefix"]["blk0"], lambda t: t.float())
+    a = cfg.attention
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(batch, length + steps, cfg.d_model, generator=gen)
+
+    def run(dev, p):
+        xs = x.to(dev)
+        y, cache, _ = TB.apply_block(p, xs[:, :length], cfg32, "attn", "dense",
+                                     mode="prefill")
+        st = {"attn": {
+            "ckv": torch.zeros(batch, length + steps, a.kv_lora_rank,
+                               device=dev),
+            "krope": torch.zeros(batch, length + steps, a.qk_rope_head_dim,
+                                 device=dev)}}
+        for key, leaf in cache["attn"].items():
+            st["attn"][key][:, :length] = leaf
+        outs = [y]
+        for i in range(steps):
+            y, st, _ = TB.apply_block(
+                p, xs[:, length + i:length + i + 1], cfg32, "attn", "dense",
+                mode="decode", cache=st,
+                pos=torch.full((batch,), length + i, dtype=torch.int32,
+                               device=dev))
+            outs.append(y)
+        return outs, st
+
+    reset_counts(kernels)
+    with torch.no_grad():
+        card, card_st = run(device, blk)
+        torch.cuda.synchronize()
+        launches = launches_of(kernels)
+        want = {name: 0 for name in kernels}
+        want.update(flash_attention=1, mla_decode=steps)
+        check(launches == want and all(ops.ref.calls == 0
+                                       for ops in kernels.values()),
+              f"the block launched {launches}, want {want}")
+        t0 = time.perf_counter()
+        cpu, cpu_st = run(torch.device("cpu"),
+                          _cast(blk, lambda t: t.to("cpu", copy=True)))
+        cpu_s = time.perf_counter() - t0
+    errs, bad = [], False
+    for got, ref in zip(card, cpu):
+        e, b = _excess(torch, got.cpu(), ref, tol)
+        errs.append(e)
+        bad = bad or b
+    for key in ("ckv", "krope"):
+        e, b = _excess(torch, card_st["attn"][key].cpu(), cpu_st["attn"][key],
+                       tol)
+        errs.append(e)
+        bad = bad or b
+    print(f"  MLA block (prefill {batch} x {length}, {steps} decode steps), "
+          f"card f32 vs CPU: max err prefill {errs[0]:.3e}, decode "
+          f"{max(errs[1:steps + 1]):.3e}, cache {max(errs[-2:]):.3e} (atol "
+          f"{tol['atol']}, rtol {tol['rtol']}); CPU {cpu_s:.1f} s", flush=True)
+    check(not bad, "the MLA block on the card and on the CPU disagree")
+    return dict(prefill_err=errs[0], decode_err=max(errs[1:steps + 1]),
+                cache_err=max(errs[-2:]), launches=launches, cpu_s=cpu_s)
+
+
+def moe_decode_ms(torch, cfg, params, device, slots=4):
+    """Device ms of one MoE FFN (the first period's) at the decode step's
+    shape: ``slots`` rows of one token."""
+    from repro_torch.models import layers as L
+
+    moe = _cast(params["stack"]["periods"]["sub0"]["ffn_moe"], lambda t: t[0])
+    x = torch.randn(slots, 1, cfg.d_model, device=device,
+                    generator=torch.Generator(device=device).manual_seed(6)
+                    ).to(L.dtype_of(cfg.compute_dtype))
+    with torch.no_grad():
+        return time_ms(torch, lambda: L.apply_moe(
+            moe, x, cfg, compute_dtype=x.dtype), reps=5, inner=5)[0]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, help="write every number here (JSON)")
@@ -1946,6 +2184,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import bwd as bops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mla_decode import ops as mops
     from repro_torch.kernels.rwkv6_scan import bwd as kbops
     from repro_torch.kernels.rwkv6_scan import ops as kops
     from repro_torch.kernels.ssm_scan import bwd as sbops
@@ -1957,7 +2196,7 @@ def main(argv=None) -> int:
     kernels = {"decode_attention": dops, "flash_attention": fops,
                "flash_attention_bwd": bops, "ssm_scan": sops,
                "rwkv6_scan": kops, "ssm_scan_bwd": sbops,
-               "rwkv6_scan_bwd": kbops}
+               "rwkv6_scan_bwd": kbops, "mla_decode": mops}
     t_start = time.perf_counter()
     # ---- 1. build and device -------------------------------------------
     print("== 1. build and device", flush=True)
@@ -1991,6 +2230,12 @@ def main(argv=None) -> int:
         check(bool(found) and all(not kernel.startswith("tf32")
                                   or "TF32" in first for _, _, first in found),
               f"{name}: no {op} instruction in {kernel}'s SASS")
+    # MLA's expanded attention (hd 192, hd_v 128): 12 k-steps of Q K^T and
+    # 8 of P V, each group ending in one wait unless ptxas serialized it
+    mla_k2 = sass["flash_attention"].get("wgmma_kernel<192,128>", {})
+    count, n_wait, _ = mla_k2.get("HGMMA", (0, 0, ""))
+    check(0 < n_wait < count, "flash_attention: wgmma_kernel<192,128> holds "
+          f"{count} HGMMA, {n_wait} with gsb0 (all of them: serialized)")
     card = gpu_name_and_power_limit()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
@@ -2128,9 +2373,44 @@ def main(argv=None) -> int:
         rows["ssm_scan_bwd"].append(ssm_bwd_case(
             torch, sops, sbops, *case[:4], case[4], gen,
             profile=case[:2] == (2, 512)))
+    # deepseek-v2's MLA: the absorbed decode (H 128, L 512, R 64) at B 1
+    # and 4 over caches of 512, 4096 and 32768 positions (decode_32k), the
+    # served step of phase 11 (4 slots in a cache of 128 at pos 96, 80, 64,
+    # 48: 4 splits), and a smoke-like shape; K2 at MLA's expanded prefill
+    # (hd 192, hd_v 128, 128 heads): one prompt of 256, 512 and a ragged 221
+    # tokens, and a query offset with Sq < Sk; and at the smoke's (24, 16)
+    for dtype in ("float32", "bfloat16"):
+        for T in (512, 4096, 32768):
+            rows["mla_decode"].append(mla_case(
+                torch, F, mops, 1, 128, 512, 64, T, [T - T // 3], dtype, gen))
+            rows["mla_decode"].append(mla_case(
+                torch, F, mops, 4, 128, 512, 64, T,
+                [1, T, T // 2 + 17, T // 8 + 5], dtype, gen))
+        rows["mla_decode"].append(mla_case(
+            torch, F, mops, 4, 128, 512, 64, 128, [97, 81, 65, 49], dtype,
+            gen))
+        rows["mla_decode"].append(mla_case(
+            torch, F, mops, 4, 4, 32, 8, 512, [1, 512, 77, 300], dtype, gen))
+        for Sq, Sk, q_offset in ((256, 256, 0), (512, 512, 0), (221, 221, 0),
+                                 (64, 300, 236)):
+            row = flash_case(torch, F, fops, 1, 128, 128, Sq, Sk, 192, True,
+                             q_offset, dtype=dtype, gen=gen, hd_v=128)
+            rows["flash_attention"].append(row)
+            if Sq == 512 and dtype == "bfloat16":    # as CARD prefills
+                k2_mla = row
+        for Sq, Sk, q_offset in ((40, 40, 0), (40, 70, 30)):
+            rows["flash_attention"].append(flash_case(
+                torch, F, fops, 2, 4, 4, Sq, Sk, 24, True, q_offset,
+                dtype=dtype, gen=gen, hd_v=16))
+    # the profiled step's cache: 4 slots at 4096, 8192, 16384, 32768
+    mla_main = mla_case(torch, F, mops, 4, 128, 512, 64, 32768,
+                        [4096, 8192, 16384, 32768], "bfloat16", gen)
+    rows["mla_decode"].append(mla_main)
     for name, rs in rows.items():
         for row in rs:
             _print_row(name, row)
+            if "sdpa" in row:
+                print(f"    SDPA backends: {row['sdpa']}")
     # each kernel at the shape the main paths give it (f32, as served)
     main_rows = {
         "decode_attention": decode_case(torch, F, dops, 4, 16, 16, 512, 64,
@@ -2141,6 +2421,7 @@ def main(argv=None) -> int:
         "flash_attention_bwd": rows["flash_attention_bwd"][0],  # training
         "rwkv6_scan_bwd": rows["rwkv6_scan_bwd"][0],     # f32 N=128 S=512
         "ssm_scan_bwd": rows["ssm_scan_bwd"][0],         # bf16 Bz=2 S=512
+        "mla_decode": mla_main,          # bf16 B=4 T=32768, the profiled cache
     }
     _print_row("decode (main)", main_rows["decode_attention"])
 
@@ -2317,6 +2598,96 @@ def main(argv=None) -> int:
           "layers, bf16 against f32, card against CPU, training", flush=True)
     dvgg = phase_dilated_vgg(torch, vcfg, device, api, steps, adamw,
                              OptimizerConfig, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 11. deepseek-v2-236b, first 4 layers at full width, bf16 ----------
+    from repro_torch.configs.deepseek_v2_236b import CARD as dcfg
+    t11 = time.perf_counter()
+    held_gb_d = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dparams = api.init_params(torch.Generator(device=device).manual_seed(0),
+                              dcfg)
+    torch.cuda.synchronize()
+    init_s_d = time.perf_counter() - t0
+    dleaves = list(_leaves(dparams))
+    n_params_d = sum(t.numel() for t in dleaves)
+    gbytes_d = sum(t.numel() * t.element_size() for t in dleaves) / 1e9
+    del dleaves
+    a = dcfg.attention
+    print(f"== 11. serve {dcfg.name} cut to {dcfg.num_layers} layers at full "
+          f"width (d_model {dcfg.d_model}, MLA {a.num_heads} heads, "
+          f"kv_lora_rank {a.kv_lora_rank}, q_lora_rank {a.q_lora_rank}, "
+          f"nope {a.qk_nope_head_dim} + rope {a.qk_rope_head_dim}, v "
+          f"{a.v_head_dim}; a dense prefix layer of d_ff "
+          f"{dcfg.moe.d_ff_dense} and {dcfg.num_layers - 1} MoE layers of "
+          f"{dcfg.moe.num_experts} experts top-{dcfg.moe.num_experts_per_tok}"
+          f" of d_ff {dcfg.moe.d_ff_expert} + {dcfg.moe.num_shared_experts} "
+          f"shared; vocab {dcfg.vocab_size}; {n_params_d / 1e9:.2f} B "
+          f"{dcfg.param_dtype} params, {gbytes_d:.1f} GB; init {init_s_d:.1f} "
+          f"s, peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB with "
+          f"{held_gb_d:.2f} GB held before it)", flush=True)
+    served_d = phase_serve(torch, np, dcfg, dparams, device, kernels, serve,
+                           max_len=128, prompt_range=(16, 65))
+    n, calls = served_d["launches"], served_d["decode_calls"]
+    want = {name: 0 for name in kernels}
+    want["mla_decode"] = dcfg.num_layers * calls
+    check(n == want, f"serving {dcfg.name} launched {n}, want {want} "
+          f"({dcfg.num_layers} MLA layers, {calls} decode calls, admission "
+          "token by token: no prefill)")
+    print("  decode step over the served cache (4 slots at 96, 80, 64, 48 of "
+          "128):")
+    prof_d = phase_profile(torch, dcfg, dparams, device, steps, api,
+                           max_len=128, pos=(96, 80, 64, 48))
+    print("  decode step over a 32,768-position cache of random latents (4 "
+          "slots at 4095, 8191, 16383, 32767):")
+    prof_d32k = phase_profile(torch, dcfg, dparams, device, steps, api,
+                              max_len=32768, pos=(4095, 8191, 16383, 32767),
+                              random_cache=True)
+    moe_ms = moe_decode_ms(torch, dcfg, dparams, device)
+    n_moe = dcfg.ffn_kinds().count("moe")
+    moe_share = {key: (n_moe * moe_ms / prof["device_ms"]
+                       if prof["device_ms"] else None)
+                 for key, prof in (("served", prof_d), ("32k", prof_d32k))}
+    print(f"  one MoE FFN at the decode step: {moe_ms:.4f} ms device; "
+          f"{n_moe} of them take {moe_share['served']:.1%} of the served "
+          f"step's device time, {moe_share['32k']:.1%} at 32k", flush=True)
+    torch.cuda.empty_cache()
+    # prefill routes a prompt as one group and may drop tokens over an
+    # expert's capacity, which one-token decode steps never do: dropless
+    ddropless = dataclasses.replace(dcfg, moe=dataclasses.replace(
+        dcfg.moe, capacity_factor=-1.0))
+    print("== 11a. prefill = decode, 2 x 48 tokens, in bf16 as served "
+          "(dropless MoE), against bf16's own rounding", flush=True)
+    reset_counts(kernels)
+    pre_d = phase_prefill_bf16(torch, np, ddropless, dparams, device, steps,
+                               api, length=48)
+    n = launches_of(kernels)
+    want = {name: 0 for name in kernels}
+    want.update(flash_attention=2 * dcfg.num_layers,
+                mla_decode=48 * dcfg.num_layers)
+    check(n == want, f"prefill = decode launched {n}, want {want}")
+    k2_mla_launches = n["flash_attention"]
+    torch.cuda.empty_cache()
+    print("== 11b. prefill = decode, 2 x 48 tokens, the first 2 layers in f32 "
+          "(dropless MoE) at 2e-3", flush=True)
+    d32 = first_layers_f32(torch, dparams, 2)
+    pre_d32 = phase_prefill(torch, np, dataclasses.replace(
+        ddropless, num_layers=2, param_dtype="float32",
+        compute_dtype="float32"), d32, device, kernels,
+        {"flash_attention": 2}, steps, api, batch=2, length=48)
+    del d32
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("== 11c. one MLA block at full width in f32 (prefill, then 8 decode "
+          "steps): card against CPU", flush=True)
+    block_d = phase_mla_block(torch, dcfg, dparams, device, kernels)
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase11_s = time.perf_counter() - t11
+    print(f"phase 11: {phase11_s:.1f} s", flush=True)
 
     # ---- summary ---------------------------------------------------------
     launches = {"decode_attention": served["launches"]["decode_attention"],
@@ -2326,7 +2697,8 @@ def main(argv=None) -> int:
                 "flash_attention_bwd":
                     trained["launches"]["flash_attention_bwd"],
                 "rwkv6_scan_bwd": trained_r["launches"]["rwkv6_scan_bwd"],
-                "ssm_scan_bwd": trained_j["launches"]["ssm_scan_bwd"]}
+                "ssm_scan_bwd": trained_j["launches"]["ssm_scan_bwd"],
+                "mla_decode": served_d["launches"]["mla_decode"]}
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
     source = {"decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                    "src/repro/kernels/decode_attention/kernel.py:64"),
@@ -2344,7 +2716,10 @@ def main(argv=None) -> int:
               "rwkv6_scan_bwd": ("src/repro_torch/csrc/rwkv6_scan_bwd.cu",
                                  "src/repro/kernels/rwkv6_scan/kernel.py:73"),
               "ssm_scan_bwd": ("src/repro_torch/csrc/ssm_scan_bwd.cu",
-                               "src/repro/kernels/ssm_scan/kernel.py:61")}
+                               "src/repro/kernels/ssm_scan/kernel.py:61"),
+              # no TPU kernel: the reference's absorbed decode is XLA einsums
+              "mla_decode": ("src/repro_torch/csrc/mla_decode.cu",
+                             "src/repro/models/attention.py:200")}
     kernel_rows = []
     for name, row in main_rows.items():
         kernel_rows.append({
@@ -2355,6 +2730,12 @@ def main(argv=None) -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "dtype": row["dtype"]})
+    # K2 at MLA's expanded shape (bf16, S 512): its numbers beside the row's
+    k2_row = next(r for r in kernel_rows if r["name"] == "flash_attention")
+    k2_row["mla"] = {key: k2_mla[key] for key in (
+        "shape", "dtype", "max_abs_err", "ms", "wall_ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms")}
+    k2_row["mla"]["launches"] = k2_mla_launches
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
@@ -2374,6 +2755,13 @@ def main(argv=None) -> int:
              "serve_jamba": served_j, "profile_jamba": prof_j,
              "prefill_jamba_f32": pre_j32, "prefill_jamba": pre_j,
              "server_solo_err_jamba": solo_err_j, "dilated_vgg": dvgg,
+             "deepseek": {"params": n_params_d, "gbytes": gbytes_d,
+                          "init_s": init_s_d, "held_gb": held_gb_d,
+                          "phase_s": phase11_s},
+             "serve_deepseek": served_d, "profile_deepseek": prof_d,
+             "profile_deepseek_32k": prof_d32k, "moe_decode_ms": moe_ms,
+             "moe_share": moe_share, "prefill_deepseek": pre_d,
+             "prefill_deepseek_f32": pre_d32, "mla_block": block_d,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,6 +1,7 @@
 """Architecture configs the port runs.  Importing this package registers
 each of them with repro_torch.core.config's registry (``--arch <id>``)."""
 from repro_torch.configs import (  # noqa: F401
+    deepseek_v2_236b,
     dilated_vgg,
     granite_moe_1b_a400m,
     jamba_1_5_large_398b,

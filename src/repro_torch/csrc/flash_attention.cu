@@ -1,12 +1,16 @@
 // Flash-attention forward for Hopper (sm_90a): online-softmax attention over
-// key tiles, causal or not, with a query offset and grouped KV heads.
+// key tiles, causal or not, with a query offset and grouped KV heads.  Q and
+// K are hd wide (up to 192), V and the output hd_v wide (hd_v <= hd, in
+// hd's 64-wide class up to 128, or hd in (128, 192] with hd_v in (64, 128]):
+// MLA's expanded prefill runs hd 192 (nope 128 + rope 64) with hd_v 128.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_flash_kernel, launched by flash_attention).  Same function: query i of
 // a block sits at position q_offset + i, keys k < Sk are valid, a causal
 // query sees keys k <= its position, query head h reads KV head h / group,
 // and (m, l, acc) accumulate in f32 with m starting at -1e30 and the output
-// acc / max(l, 1e-30), so a row with no visible key gives 0.
+// acc / max(l, 1e-30), so a row with no visible key gives 0.  The scale is
+// 1 / sqrt(hd), hd the width of Q, as in the reference whatever V's width.
 //
 // What bounds it on this card.  A causal pass over S keys does about
 // 2 * B * Hq * S^2 * hd FLOPs on 4 * B * Hq * S * hd elements read or
@@ -21,25 +25,30 @@
 // (the (Sq, Sk) score matrix never reaches device memory) and stopping a
 // causal block at its last visible key:
 //
-//  * bf16 (hd a multiple of 8, at most 128): tensor cores.  One warpgroup
+//  * bf16 (hd and hd_v multiples of 8): tensor cores.  One warpgroup
 //    (128 threads) owns 64 query rows of one (b, h); two blocks share an
 //    SM.  S = Q K^T is wgmma.mma_async m64n64k16 with Q and K read from
-//    shared memory; the f32 scores are scaled (in the exponent, never in a
-//    rounded Q), masked only on tiles that cross the diagonal or Sk, and
-//    turned into P in registers, rounded to bf16 and fed back as the A
-//    operand of O += P V (wgmma m64n64k16 per 64 columns of hd, V read from
-//    shared memory MN-major, i.e. with the transpose bit).  Q, K and V tiles
-//    (64 rows by 64 columns, 128-byte swizzle matching the wgmma
-//    descriptors) arrive by TMA from 3-D tensor maps (hd, S, B * H), whose
-//    out-of-bounds fill zeroes ragged tiles without reading the next head;
-//    K/V come through a ring of two stages with mbarriers, the next tile's
-//    copy in flight while the current one is multiplied.
-//  * f32 (and bf16 whose hd TMA cannot describe): CUDA cores, products in
-//    f32 (a TF32 pass keeps ~3 digits, short of the 3e-5 tolerance).  A
-//    block of 256 threads owns 64 query rows; each thread holds a 4 x 4 tile
-//    of S and a 4 x (hd / 16) tile of O in registers, so that 8 shared
-//    loads of 16 bytes feed 64 FMAs; K/V tiles of 64 keys arrive by cp.async
-//    into two stages.
+//    shared memory (hd / 16 steps of k: 12 at hd 192); the f32 scores are
+//    scaled (in the exponent, never in a rounded Q), masked only on tiles
+//    that cross the diagonal or Sk, and turned into P in registers, rounded
+//    to bf16 and fed back as the A operand of O += P V (wgmma m64n64k16 per
+//    64 columns of hd_v, V read from shared memory MN-major, i.e. with the
+//    transpose bit; O stays 64 x hd_v in registers).  Q, K and V tiles (64
+//    rows by 64 columns, 128-byte swizzle matching the wgmma descriptors:
+//    three boxes a row of Q or K at hd 192) arrive by TMA from 3-D tensor
+//    maps (width, S, B * H), whose out-of-bounds fill zeroes ragged tiles
+//    without reading the next head; K/V come through a ring of two stages
+//    with mbarriers, the next tile's copy in flight while the current one is
+//    multiplied (at hd 192, hd_v 128: 24 KB of Q and 40 KB of K and V a
+//    stage, 105 KB, two blocks an SM).
+//  * f32 (and bf16 whose hd or hd_v TMA cannot describe): CUDA cores,
+//    products in f32 (a TF32 pass keeps ~3 digits, short of the 3e-5
+//    tolerance).  A block of 256 threads owns 64 query rows; each thread
+//    holds a 4 x 4 tile of S and a 4 x (hd_v / 16) tile of O in registers,
+//    so that 8 shared loads of 16 bytes feed 64 FMAs; K/V tiles of 64 keys
+//    arrive by cp.async into two stages, or one where two do not fit shared
+//    memory (hd 192: the (64, width + 4) f32 tiles of Q, K, V and P take
+//    152 KB at hd_v 128 with one stage, 236 KB with two).
 //
 // Both write each query row's log-sum-exp of its scaled visible scores
 // (natural log, f32; +inf for a row with no visible key) when given an lse
@@ -73,32 +82,35 @@ __device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(
 constexpr int kTile = 64;                 // query rows per block = keys per tile
 constexpr int kSlice = kTile * 64;        // elements of one 64 x 64 slice (8 KB)
 
-template <int HD>
+template <int HD, int HDV>
 constexpr int wg_smem_bytes() {
   // Q, two stages of (K, V), three mbarriers, and slack for 1024-byte alignment
-  return (HD / 64) * kSlice * 2 * 5 + 8 * 3 + 1024;
+  return (HD / 64 + 2 * (HD / 64 + HDV / 64)) * kSlice * 2 + 8 * 3 + 1024;
 }
 
 // One block, one warpgroup: 64 query rows (tile blockIdx.x, counted from the
 // last so the longest causal blocks start first) of (b, h) = blockIdx.y;
 // two blocks share an SM, so one's softmax runs beside the other's products.
-// Maps: q (hd, Sq, B * Hq), k and v (hd, Sk, B * Hkv), boxes (64, 64, 1).
+// Maps: q (hd, Sq, B * Hq), k (hd, Sk, B * Hkv), v (hd_v, Sk, B * Hkv),
+// boxes (64, 64, 1).  HD and HDV: hd and hd_v rounded up to 64.
 // Each group of products is a stage of its own (fence, products, wait):
 // issuing tile t's S with tile t - 1's P V in one stage, so that the softmax
 // overlaps them, made ptxas serialize every wgmma (C7513) and ran slower.
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(128)
 wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
-             float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk, int hd, int causal,
+             float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk, int hd_v, int causal,
              int q_offset, float scale_log2) {
-  constexpr int NS = HD / 64;                       // 64-column slices of hd
-  constexpr uint32_t kTileBytes = NS * kSlice * 2;  // one Q, K or V tile
+  constexpr int NS = HD / 64;                        // 64-column slices of hd
+  constexpr int NSV = HDV / 64;                      // and of hd_v
+  constexpr uint32_t kTileBytes = NS * kSlice * 2;   // one Q or K tile
+  constexpr uint32_t kVTileBytes = NSV * kSlice * 2; // one V tile
   extern __shared__ unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  bf16* KVs = Qs + NS * kSlice;                     // stage s: K at 2s NS, V after it
-  uint64_t* bars = reinterpret_cast<uint64_t*>(KVs + 4 * NS * kSlice);  // q, full[2]
+  bf16* KVs = Qs + NS * kSlice;                     // stage s: K at s (NS + NSV), V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(KVs + 2 * (NS + NSV) * kSlice);  // q, full[2]
 
   const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
   const int kvbh = b * Hkv + h / (Hq / Hkv);
@@ -109,13 +121,13 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   const int n = k_end > 0 ? (k_end + kTile - 1) / kTile : 0;
 
   auto issue_kv = [&](int t, int stage) {
-    bf16* Ks = KVs + stage * 2 * NS * kSlice;
+    bf16* Ks = KVs + stage * (NS + NSV) * kSlice;
     bf16* Vs = Ks + NS * kSlice;
-    mbar_expect_tx(&bars[1 + stage], 2 * kTileBytes);
+    mbar_expect_tx(&bars[1 + stage], kTileBytes + kVTileBytes);
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
       tma_load_3d(Ks + s * kSlice, &kmap, &bars[1 + stage], s * 64, t * kTile, kvbh);
-      tma_load_3d(Vs + s * kSlice, &vmap, &bars[1 + stage], s * 64, t * kTile, kvbh);
+      if (s < NSV) tma_load_3d(Vs + s * kSlice, &vmap, &bars[1 + stage], s * 64, t * kTile, kvbh);
     }
   };
 
@@ -136,9 +148,9 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   // block j: 8j + 2 * (lane % 4) + {0, 1}
   const int r = warp * 16 + lane / 4, cq = 2 * (lane % 4);
   const int qpos0 = q_offset + q0 + r, qpos1 = qpos0 + 8;
-  float o[NS][32];
+  float o[NSV][32];
 #pragma unroll
-  for (int s = 0; s < NS; ++s)
+  for (int s = 0; s < NSV; ++s)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[s][i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // m in units of log2
@@ -150,7 +162,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     // finished (the __syncthreads at the end of the loop)
     if (tid == 0 && t + 1 < n) issue_kv(t + 1, stage ^ 1);
     mbar_wait(&bars[1 + stage], (t >> 1) & 1);
-    const bf16* Ks = KVs + stage * 2 * NS * kSlice;
+    const bf16* Ks = KVs + stage * (NS + NSV) * kSlice;
     const bf16* Vs = Ks + NS * kSlice;
 
     float sc[32];
@@ -210,7 +222,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     l0 = l0 * corr0 + rs0;
     l1 = l1 * corr1 + rs1;
 #pragma unroll
-    for (int s = 0; s < NS; ++s)
+    for (int s = 0; s < NSV; ++s)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         o[s][4 * j] *= corr0;
@@ -221,14 +233,14 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 
     wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < NS; ++s)
+    for (int s = 0; s < NSV; ++s)
 #pragma unroll
       for (int kk = 0; kk < kTile / 16; ++kk)  // 16 keys = 16 rows of 128 bytes
         wgmma_rs(o[s], pa[kk], desc_sw128(Vs + s * kSlice + kk * 16 * 64, 64 * 128, 1024));
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int s = 0; s < NS; ++s) fence_regs(o[s]);
+    for (int s = 0; s < NSV; ++s) fence_regs(o[s]);
     __syncthreads();
   }
 
@@ -238,7 +250,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  bf16* ob = out + (size_t)bh * Sq * hd;
+  bf16* ob = out + (size_t)bh * Sq * hd_v;
   const int row0 = q0 + r, row1 = row0 + 8;
   if (lse != nullptr && lane % 4 == 0) {  // m in units of log2: lse = (m + log2 l) ln 2
     constexpr float kLn2 = 0.6931471805599453f;
@@ -246,40 +258,41 @@ wgmma_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     if (row1 < Sq) lse[(size_t)bh * Sq + row1] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : INFINITY;
   }
 #pragma unroll
-  for (int s = 0; s < NS; ++s)
+  for (int s = 0; s < NSV; ++s)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = s * 64 + 8 * j + cq;
-      if (col < hd) {
+      if (col < hd_v) {
         if (row0 < Sq)
-          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * hd + col) =
+          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * hd_v + col) =
               __floats2bfloat162_rn(o[s][4 * j] * inv0, o[s][4 * j + 1] * inv0);
         if (row1 < Sq)
-          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * hd + col) =
+          *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * hd_v + col) =
               __floats2bfloat162_rn(o[s][4 * j + 2] * inv1, o[s][4 * j + 3] * inv1);
       }
     }
 }
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
-                         int B, int Hq, int Hkv, int Sq, int Sk, int hd, int causal,
+                         int B, int Hq, int Hkv, int Sq, int Sk, int hd, int hd_v, int causal,
                          int q_offset, cudaStream_t st) {
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, hd, Sq, B * Hq) || !make_map(&km, k, hd, Sk, B * Hkv) ||
-      !make_map(&vm, v, hd, Sk, B * Hkv))
+      !make_map(&vm, v, hd_v, Sk, B * Hkv))
     return cudaErrorInvalidValue;
-  constexpr int bytes = wg_smem_bytes<HD>();
+  constexpr int bytes = wg_smem_bytes<HD, HDV>();
+  static_assert(bytes <= kMaxSmem, "shared memory");
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        wgmma_kernel<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const dim3 grid((Sq + kTile - 1) / kTile, B * Hq);
-  wgmma_kernel<HD><<<grid, 128, bytes, st>>>(
-      qm, km, vm, static_cast<bf16*>(out), lse, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
+  wgmma_kernel<HD, HDV><<<grid, 128, bytes, st>>>(
+      qm, km, vm, static_cast<bf16*>(out), lse, Hq, Hkv, Sq, Sk, hd_v, causal, q_offset,
       1.4426950408889634f / sqrtf((float)hd));
   return cudaGetLastError();
 }
@@ -316,25 +329,35 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0, int 
   }
 }
 
-template <int HD>
-constexpr int simt_smem_bytes() {
-  // Q, two stages of (K, V), P
-  return (int)sizeof(float) * (5 * kTile * (HD + 4) + kTile * (kTile + 4));
+template <int HD, int HDV, int STAGES>
+__host__ __device__ constexpr int simt_smem_bytes() {
+  // Q, STAGES stages of (K, V), P
+  return (int)sizeof(float) *
+         (kTile * (HD + 4) + STAGES * kTile * (HD + 4 + HDV + 4) + kTile * (kTile + 4));
+}
+
+// K/V stages of the CUDA-core kernel: two where they fit shared memory
+template <int HD, int HDV>
+__host__ __device__ constexpr int simt_stages() {
+  return simt_smem_bytes<HD, HDV, 2>() <= kMaxSmem ? 2 : 1;
 }
 
 // One block: 64 query rows (tile blockIdx.x, from the last) of (b, h) =
 // blockIdx.y.  Thread (ty, tx) owns query rows 4 ty + i, score columns
-// tx + 16 j and output columns 4 tx + 64 c + e.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kSimtThreads, HD == 128 ? 1 : 2)  // as shared memory allows
+// tx + 16 j and output columns 4 tx + 64 c + e.  HD and HDV: hd and hd_v
+// rounded up to 64.
+template <typename T, int HD, int HDV>
+__global__ void __launch_bounds__(kSimtThreads, HD == 64 ? 2 : 1)  // as shared memory allows
 simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             T* __restrict__ out, float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
-            int hd, int causal, int q_offset, float scale) {
-  constexpr int ld = HD + 4, ldp = kTile + 4, NC = HD / 64;
+            int hd, int hd_v, int causal, int q_offset, float scale) {
+  constexpr int ld = HD + 4, ldv = HDV + 4, ldp = kTile + 4, NC = HDV / 64;
+  constexpr int STAGES = simt_stages<HD, HDV>();
+  constexpr int kStage = kTile * (ld + ldv);  // floats of one stage: K [64][ld], V [64][ldv]
   extern __shared__ __align__(16) float fsmem[];
   float* Qs = fsmem;                       // [64][ld]
-  float* KV = Qs + kTile * ld;             // stage s: K at 2s, V at 2s + 1, [64][ld] each
-  float* Ps = KV + 4 * kTile * ld;         // [64][ldp]
+  float* KV = Qs + kTile * ld;             // stage s at s * kStage
+  float* Ps = KV + STAGES * kStage;        // [64][ldp]
 
   const int bh = blockIdx.y, b = bh / Hq, h = bh % Hq;
   const int kvbh = b * Hkv + h / (Hq / Hkv);
@@ -342,7 +365,7 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const T* qb = q + (size_t)bh * Sq * hd;
   const T* kb = k + (size_t)kvbh * Sk * hd;
-  const T* vb = v + (size_t)kvbh * Sk * hd;
+  const T* vb = v + (size_t)kvbh * Sk * hd_v;
   int k_end = Sk;
   if (causal) k_end = min(Sk, q_offset + min(q0 + kTile, Sq));
   const int ntiles = k_end > 0 ? (k_end + kTile - 1) / kTile : 0;
@@ -350,7 +373,7 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   load_rows<T, HD>(Qs, qb, q0, Sq, hd);
   if (ntiles > 0) {
     load_rows<T, HD>(KV, kb, 0, Sk, hd);
-    load_rows<T, HD>(KV + kTile * ld, vb, 0, Sk, hd);
+    load_rows<T, HDV>(KV + kTile * ld, vb, 0, Sk, hd_v);
   }
   cp_async_commit();
 
@@ -367,15 +390,24 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 
   for (int t = 0; t < ntiles; ++t) {
     const int k0 = t * kTile;
-    const float* Ks = KV + (t & 1) * 2 * kTile * ld;
+    float* Ks = KV + (STAGES == 2 ? (t & 1) : 0) * kStage;
     const float* Vs = Ks + kTile * ld;
-    if (t + 1 < ntiles) {  // the other stage was released at the end of t - 1
-      float* Kn = KV + ((t + 1) & 1) * 2 * kTile * ld;
-      load_rows<T, HD>(Kn, kb, k0 + kTile, Sk, hd);
-      load_rows<T, HD>(Kn + kTile * ld, vb, k0 + kTile, Sk, hd);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
+    if (STAGES == 2) {
+      if (t + 1 < ntiles) {  // the other stage was released at the end of t - 1
+        float* Kn = KV + ((t + 1) & 1) * kStage;
+        load_rows<T, HD>(Kn, kb, k0 + kTile, Sk, hd);
+        load_rows<T, HDV>(Kn + kTile * ld, vb, k0 + kTile, Sk, hd_v);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else {  // one stage: tile t goes into it once t - 1 has released it
+      if (t > 0) {
+        load_rows<T, HD>(Ks, kb, k0, Sk, hd);
+        load_rows<T, HDV>(Ks + kTile * ld, vb, k0, Sk, hd_v);
+        cp_async_commit();
+      }
       cp_async_wait<0>();
     }
     __syncthreads();
@@ -440,7 +472,7 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
       for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(Vs + (j + jj) * ld + 4 * tx + 64 * c);
+          const float4 vv = *reinterpret_cast<const float4*>(Vs + (j + jj) * ldv + 4 * tx + 64 * c);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float p = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y : jj == 2 ? pv[i].z : pv[i].w;
@@ -466,73 +498,77 @@ simt_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     if (lse != nullptr && tx == 0)
       lse[(size_t)bh * Sq + row] = lt > 0.f ? m[i] + logf(lt) : INFINITY;
     const float inv = 1.f / fmaxf(lt, 1e-30f);
-    T* ob = out + ((size_t)bh * Sq + row) * hd;
+    T* ob = out + ((size_t)bh * Sq + row) * hd_v;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = 4 * tx + 64 * c + e;
-        if (d < hd) store(ob + d, acc[i][c][e] * inv);
+        if (d < hd_v) store(ob + d, acc[i][c][e] * inv);
       }
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, void* out, float* lse,
-                        int B, int Hq, int Hkv, int Sq, int Sk, int hd, int causal,
+                        int B, int Hq, int Hkv, int Sq, int Sk, int hd, int hd_v, int causal,
                         int q_offset, cudaStream_t st) {
-  constexpr int bytes = simt_smem_bytes<HD>();
+  constexpr int bytes = simt_smem_bytes<HD, HDV, simt_stages<HD, HDV>()>();
   static_assert(bytes <= kMaxSmem, "shared memory");
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        simt_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        simt_kernel<T, HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const dim3 grid((Sq + kTile - 1) / kTile, B * Hq);
-  simt_kernel<T, HD><<<grid, kSimtThreads, bytes, st>>>(
+  simt_kernel<T, HD, HDV><<<grid, kSimtThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), lse, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
+      static_cast<T*>(out), lse, Hq, Hkv, Sq, Sk, hd, hd_v, causal, q_offset,
       1.0f / sqrtf((float)hd));
   return cudaGetLastError();
 }
 
+// The instantiations: hd and hd_v rounded up to 64 to one width (64 or 128),
+// or to 192 and 128 (MLA's expanded attention).  The C entry refuses other
+// pairs.
+#define FA_ARGS q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, hd_v, causal, q_offset, st
 template <typename T>
 cudaError_t launch_simt_hd(const void* q, const void* k, const void* v, void* out, float* lse,
-                           int B, int Hq, int Hkv, int Sq, int Sk, int hd, int causal,
+                           int B, int Hq, int Hkv, int Sq, int Sk, int hd, int hd_v, int causal,
                            int q_offset, cudaStream_t st) {
-  if (hd <= 64)
-    return launch_simt<T, 64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
-  if (hd <= 128)
-    return launch_simt<T, 128>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
-  return cudaErrorInvalidValue;
+  if (hd <= 64) return launch_simt<T, 64, 64>(FA_ARGS);
+  if (hd <= 128) return launch_simt<T, 128, 128>(FA_ARGS);
+  return launch_simt<T, 192, 128>(FA_ARGS);
 }
 
 }  // namespace
 
-// q, out: (B, Hq, Sq, hd); k, v: (B, Hkv, Sk, hd); all contiguous on the
-// device; lse: (B, Hq, Sq) f32, or null.  dtype 0 = float32, 1 = bfloat16.
-// bf16 with hd a multiple of 8 runs the tensor-core kernel; f32, and bf16
-// rows TMA cannot describe, the CUDA-core one.  Returns the launch's cudaError_t (0 when it was accepted).
+// q: (B, Hq, Sq, hd); k: (B, Hkv, Sk, hd); v: (B, Hkv, Sk, hd_v); out: (B, Hq,
+// Sq, hd_v); all contiguous on the device; hd_v <= hd, both in one 64-wide
+// class up to 128, or hd in (128, 192] with hd_v in (64, 128]; lse: (B,
+// Hq, Sq) f32, or null.  dtype 0 = float32, 1 = bfloat16.  bf16 with hd and
+// hd_v multiples of 8 runs the tensor-core kernel; f32, and bf16 rows TMA
+// cannot describe, the CUDA-core one.  Returns the launch's cudaError_t (0
+// when it was accepted).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, float* lse, int B, int Hq, int Hkv,
-                               int Sq, int Sk, int hd, int causal, int q_offset,
+                               int Sq, int Sk, int hd, int hd_v, int causal, int q_offset,
                                int dtype, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || hd <= 0 || hd > 128 || Hq % Hkv != 0 ||
-      B * Hq > 65535)
+  const int w = (hd + 63) / 64, wv = (hd_v + 63) / 64;  // 64-column slices
+  if (B <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || hd <= 0 || hd_v <= 0 || hd_v > hd ||
+      !((w == wv && w <= 2) || (w == 3 && wv == 2)) || Hq % Hkv != 0 || B * Hq > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_simt_hd<float>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
-                                 st);
+  if (dtype == 0) return launch_simt_hd<float>(FA_ARGS);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if (hd % 8 != 0)
-    return launch_simt_hd<bf16>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
-  if (hd <= 64)
-    return launch_wgmma<64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
-  return launch_wgmma<128>(q, k, v, out, lse, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st);
+  if (hd % 8 != 0 || hd_v % 8 != 0) return launch_simt_hd<bf16>(FA_ARGS);
+  if (hd <= 64) return launch_wgmma<64, 64>(FA_ARGS);
+  if (hd <= 128) return launch_wgmma<128, 128>(FA_ARGS);
+  return launch_wgmma<192, 128>(FA_ARGS);
 }
+#undef FA_ARGS
 
 extern "C" const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

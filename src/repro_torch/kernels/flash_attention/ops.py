@@ -2,16 +2,21 @@
 version for CPU tensors.
 
 A CUDA tensor launches ``csrc/flash_attention.cu`` or raises; nothing routes
-it to the plain version.  There, bf16 with a head_dim that is a multiple of 8
-runs on the tensor cores (wgmma, K/V by TMA); f32, and bf16 of another
-head_dim, on the CUDA cores, register-tiled.
+it to the plain version.  There, bf16 with head dims that are multiples of 8
+runs on the tensor cores (wgmma, K/V by TMA); f32, and bf16 of other head
+dims, on the CUDA cores, register-tiled.  Q and K are ``hd`` wide (up to
+192), V and the output ``hd_v`` wide: ``hd_v <= hd``, both in one 64-wide
+class up to 128, or ``hd`` in (128, 192] with ``hd_v`` in (64, 128] (MLA's
+expanded attention: 192 and 128); the scale is ``1 / sqrt(hd)``.
 
 Under grad mode, with an input that requires grad, a CUDA call is a
 ``torch.autograd.Function``: its forward also writes each query row's
 log-sum-exp, and its backward launches ``csrc/flash_attention_bwd.cu``
 (:mod:`.bwd`).  Outside grad mode no log-sum-exp is written, so serving runs
-the kernel exactly as before.  CPU tensors get :func:`attention_ref`, which
-autograd differentiates.
+the kernel exactly as before.  The backward takes ``hd_v == hd`` up to
+:data:`bwd.MAX_HEAD_DIM`; another shape under grad mode raises
+``NotImplementedError`` (MLA training, ROADMAP.md Queue 1).  CPU tensors get
+:func:`attention_ref`, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -28,24 +33,36 @@ from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
 # kernel launches, counted where the kernel is launched and nowhere else
 launches = 0
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 192
+# the (hd, hd_v) pairs the kernel is instantiated for, each width in 64-column
+# slices: one width up to 128, or MLA's 192 with 128
+_PAIRS = {(1, 1), (2, 2), (3, 2)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 5 + [_I] * 10 + [_P]
+
+
+def _slices(hd: int, hd_v: int) -> Tuple[int, int]:
+    return -(-hd // 64), -(-hd_v // 64)
 
 
 def _check(q, k, v) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError("flash_attention: want q (B, Hq, Sq, hd) and k, v "
-                         f"(B, Hkv, Sk, hd); got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError("flash_attention: want q (B, Hq, Sq, hd), k (B, Hkv, "
+                         f"Sk, hd) and v (B, Hkv, Sk, hd_v); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, Hq, _, hd = q.shape
     _, Hkv, _, hd_k = k.shape
     if k.shape[0] != B or hd_k != hd or Hq % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
                          f"match k {tuple(k.shape)}")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head_dim {hd} > {MAX_HEAD_DIM}")
+    if hd > MAX_HEAD_DIM or v.shape[3] > hd \
+            or _slices(hd, v.shape[3]) not in _PAIRS:
+        raise ValueError(f"flash_attention: want hd_v <= hd <= {MAX_HEAD_DIM}, "
+                         "both in one 64-wide class up to 128, or hd in (128, "
+                         f"192] with hd_v in (64, 128]; got hd {hd}, hd_v "
+                         f"{v.shape[3]}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k, v must share one dtype of "
                         f"{list(_DTYPES)}; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -67,14 +84,15 @@ def _launch(q, k, v, causal: bool, q_offset: int, with_lse: bool
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     B, Hq, Sq, hd = q.shape
     _, Hkv, Sk, _ = k.shape
+    hd_v = v.shape[3]
     fn = _build.function("flash_attention", _ARGTYPES)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Hq, Sq, hd_v))
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(), B, Hq, Hkv, Sq, Sk, hd,
-             int(causal), int(q_offset), _DTYPES[q.dtype], stream)
+             hd_v, int(causal), int(q_offset), _DTYPES[q.dtype], stream)
     _build.check("flash_attention", err)
     launches += 1
     return out, lse
@@ -114,14 +132,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Softmax attention forward; query i sits at position q_offset + i.
 
-    q: (B, Hq, Sq, hd); k, v: (B, Hkv, Sk, hd), Hq % Hkv == 0 (query head h
-    reads KV head h // group).  Returns (B, Hq, Sq, hd) in q.dtype, with a
-    ``grad_fn`` when grad mode is on and an input requires grad.
+    q: (B, Hq, Sq, hd); k: (B, Hkv, Sk, hd); v: (B, Hkv, Sk, hd_v), hd_v <=
+    hd <= 192 as the module says, Hq % Hkv == 0 (query head h reads KV head
+    h // group); scale 1 / sqrt(hd).  Returns (B, Hq, Sq, hd_v) in q.dtype, with a ``grad_fn``
+    when grad mode is on and an input requires grad.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        hd, hd_v = q.shape[3], v.shape[3]
+        if hd_v != hd or hd > bwd.MAX_HEAD_DIM:
+            raise NotImplementedError(
+                f"flash_attention: the backward of hd {hd}, hd_v {hd_v} is not "
+                "ported yet (MLA training, ROADMAP.md Queue 1); the backward "
+                f"kernel takes hd_v == hd <= {bwd.MAX_HEAD_DIM}")
         return FlashAttention.apply(q, k, v, causal, int(q_offset))
     return _launch(q, k, v, causal, q_offset, with_lse=False)[0]
 

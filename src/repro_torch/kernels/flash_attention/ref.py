@@ -26,16 +26,17 @@ def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Hq, Sq, hd); k, v: (B, Hkv, Sk, hd); query i sits at position
-    ``q_offset + i``.  f32 softmax attention; a row with no visible key
-    gives 0.  Returns (B, Hq, Sq, hd) in q.dtype."""
+    """q: (B, Hq, Sq, hd); k: (B, Hkv, Sk, hd); v: (B, Hkv, Sk, hd_v); query
+    i sits at position ``q_offset + i``.  f32 softmax attention, scaled by
+    1 / sqrt(hd); a row with no visible key gives 0.  Returns (B, Hq, Sq,
+    hd_v) in q.dtype."""
     global calls
     calls += 1
-    B, Hq, Sq, hd = q.shape
+    B, Hq, Sq, _ = q.shape
     s = _scores(q, k, causal, q_offset)
     p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
     o = torch.einsum("bngqk,bnkd->bngqd", p, v.float())
-    return o.reshape(B, Hq, Sq, hd).to(q.dtype)
+    return o.reshape(B, Hq, Sq, v.shape[-1]).to(q.dtype)
 
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,

@@ -9,6 +9,8 @@ continuous batching over prefill and decode.
         --smoke --device cpu                   # a recurrent model
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-1.5-large-398b --smoke --device cpu   # Mamba/attn/MoE
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-236b --smoke --device cpu       # MLA, dense prefix
 
 A request queue, a decode batch with in-flight slot reuse (a finished
 request's slot is refilled from the queue) and greedy sampling.  Every decode
@@ -146,8 +148,7 @@ class BatchedServer:
         if self.prefill is not None:
             prompt = self._tensor(np.asarray(req.prompt, np.int32)[None])
             _, cache = self.prefill(self.params, {"tokens": prompt})
-            tree_map(lambda dst, src: _write_slot(dst, src, slot),
-                     self.state, cache)
+            _write_cache_into_slot(self.state, cache, slot)
         else:
             for pos, tok in enumerate(req.prompt):
                 tokens = np.zeros((self.slots,), np.int32)
@@ -201,6 +202,17 @@ def _write_slot(dst: torch.Tensor, src: torch.Tensor, slot: int) -> None:
     leading part of each axis."""
     region = tuple(slice(0, n) for n in src.shape[2:])
     dst[:, slot][(slice(None),) + region].copy_(src[:, 0])
+
+
+def _write_cache_into_slot(state, cache, slot: int) -> None:
+    """A one-row prefill ``cache`` into ``state``'s rows of ``slot``, in
+    place: the stacked periods' leaves (periods, batch, ...) and the prefix
+    blocks' (batch, ...), each given a period axis of one."""
+    tree_map(lambda dst, src: _write_slot(dst, src, slot),
+             state["periods"], cache["periods"])
+    if "prefix" in cache:
+        tree_map(lambda dst, src: _write_slot(dst[None], src[None], slot),
+                 state["prefix"], cache["prefix"])
 
 
 def serve_summary(requests: List[Request]) -> str:

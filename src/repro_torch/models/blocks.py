@@ -1,14 +1,15 @@
 """Residual blocks and the stacked-period layer stack (PyTorch twin of
 ``repro.models.blocks``).
 
-A model is ``N repetitions of a period``, a period being the minimal
-repeating list of (mixer_kind, ffn_kind) layer descriptors.  Period
-parameters are stacked on a leading axis, as in the JAX package, so its
-param tree converts key for key; the reference's ``lax.scan`` over that axis
-is a Python loop here.  The port runs attention and Mamba mixers with dense
-or MoE FFNs (granite-moe, jamba) and RWKV-6 ("rwkv", "rwkv_cm") blocks; the
-dense prefix blocks in front of an MoE stack come with MLA (ROADMAP.md,
-Queue 1 item 9).
+A model is ``prefix blocks + N repetitions of a period``, a period being the
+minimal repeating list of (mixer_kind, ffn_kind) layer descriptors and the
+prefix the dense blocks in front of an MoE stack (deepseek-v2's first
+layer).  Period parameters are stacked on a leading axis, as in the JAX
+package, so its param tree converts key for key; the reference's
+``lax.scan`` over that axis is a Python loop here, and the prefix blocks
+run unrolled before it.  The port runs attention (GQA or MLA) and Mamba
+mixers with dense or MoE FFNs (granite-moe, jamba, deepseek-v2) and RWKV-6
+("rwkv", "rwkv_cm") blocks.
 """
 from __future__ import annotations
 
@@ -53,13 +54,13 @@ def block_pattern(cfg: ModelConfig) -> Tuple[List, List, int]:
     return prefix, rest, 1
 
 
-def _ported_pattern(cfg: ModelConfig) -> Tuple[List, int]:
+def _ported_pattern(cfg: ModelConfig) -> Tuple[List, List, int]:
     prefix, period, n_periods = block_pattern(cfg)
-    if prefix or any(d not in PORTED_BLOCKS for d in period):
+    if any(d not in PORTED_BLOCKS for d in prefix + period):
         raise NotImplementedError(
             f"{cfg.name}: blocks {prefix + period} are not ported yet; the "
             f"port runs stacks of {PORTED_BLOCKS} (ROADMAP.md, Queue 1)")
-    return period, n_periods
+    return prefix, period, n_periods
 
 
 # ---------------------------------------------------------------------------
@@ -149,10 +150,15 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Periods are drawn one at a time into tensors stacked on the period
-    axis (allocated once, filled in place; a single period is a view), so
-    init never holds a second copy of the weights."""
-    period, n_periods = _ported_pattern(cfg)
+    """The prefix blocks, then the periods, drawn one at a time into
+    tensors stacked on the period axis (allocated once, filled in place; a
+    single period is a view), so init never holds a second copy of the
+    weights."""
+    prefix, period, n_periods = _ported_pattern(cfg)
+    params: Params = {}
+    if prefix:
+        params["prefix"] = {f"blk{i}": init_block(gen, cfg, m, f)
+                            for i, (m, f) in enumerate(prefix)}
 
     def init_period():
         return {f"sub{j}": init_block(gen, cfg, m, f)
@@ -160,22 +166,29 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
     periods = (init_period() for _ in range(n_periods))
     if n_periods == 1:
-        return {"periods": L.tree_map(lambda t: t[None], next(periods))}
+        params["periods"] = L.tree_map(lambda t: t[None], next(periods))
+        return params
     stacked = None
     for i, one in enumerate(periods):
         if stacked is None:
             stacked = L.tree_map(
                 lambda t: t.new_empty((n_periods,) + t.shape), one)
         L.tree_map(lambda dst, src: dst[i].copy_(src), stacked, one)
-    return {"periods": stacked}
+    params["periods"] = stacked
+    return params
 
 
 def stack_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> Params:
-    period, n_periods = _ported_pattern(cfg)
+    prefix, period, n_periods = _ported_pattern(cfg)
+    spec: Params = {}
+    if prefix:
+        spec["prefix"] = {f"blk{i}": block_cache_spec(cfg, m, f, batch, max_len)
+                          for i, (m, f) in enumerate(prefix)}
     per = {f"sub{j}": block_cache_spec(cfg, m, f, batch, max_len)
            for j, (m, f) in enumerate(period)}
-    return {"periods": L.tree_map(
-        lambda s: ATT.TensorSpec((n_periods,) + s.shape, s.dtype), per)}
+    spec["periods"] = L.tree_map(
+        lambda s: ATT.TensorSpec((n_periods,) + s.shape, s.dtype), per)
+    return spec
 
 
 # the products whose outputs "dots" keeps (the reference's
@@ -211,14 +224,26 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 mode: str, cache: Optional[Params] = None, pos=None,
                 causal: bool = True, remat: str = "none",
                 ) -> Tuple[torch.Tensor, Optional[Params], Union[torch.Tensor, float]]:
-    """Run the periods in order.  Returns (x, new_cache, total_aux): the
-    cache is, in decode, the cache tensors themselves, updated in place; in
-    prefill a new cache stacked on the period axis; in train None.  The aux
-    loss is 0.0 for a stack without MoE.  ``remat`` checkpoints each period
-    in train mode (see :func:`_remat_wrap`); other modes ignore it."""
-    period, n_periods = _ported_pattern(cfg)
+    """Run the prefix blocks, then the periods in order.  Returns (x,
+    new_cache, total_aux): the cache is, in decode, the cache tensors
+    themselves, updated in place; in prefill a new cache, the prefix
+    blocks' under "prefix" and the periods' stacked on the period axis
+    under "periods"; in train None.  The aux loss is 0.0 for a stack without
+    MoE.  ``remat`` checkpoints each period in train mode (see
+    :func:`_remat_wrap`; the prefix blocks run without, as in the
+    reference); other modes ignore it."""
+    prefix, period, n_periods = _ported_pattern(cfg)
     total_aux = 0.0
     per_period = []
+    prefix_cache: Params = {}
+    for i, (m, f) in enumerate(prefix):
+        x, c, aux = apply_block(
+            params["prefix"][f"blk{i}"], x, cfg, m, f, mode=mode,
+            cache=None if cache is None else cache["prefix"][f"blk{i}"],
+            pos=pos, causal=causal)
+        total_aux = total_aux + aux
+        if c is not None:
+            prefix_cache[f"blk{i}"] = c
 
     def period_fn(x, p_params, p_cache):
         caches_out, aux_sum = {}, 0.0
@@ -248,6 +273,8 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if mode == "decode":
         return x, cache, total_aux
     if mode == "prefill":
-        return x, {"periods": L.tree_map(lambda *xs: torch.stack(xs),
-                                         *per_period)}, total_aux
+        new_cache = {"prefix": prefix_cache} if prefix_cache else {}
+        new_cache["periods"] = L.tree_map(lambda *xs: torch.stack(xs),
+                                          *per_period)
+        return x, new_cache, total_aux
     return x, None, total_aux

@@ -177,8 +177,9 @@ def test_import_builds_nothing_and_missing_nvcc_raises(monkeypatch, tmp_path):
     """Importing the package compiles nothing; without nvcc a build raises
     with a clear message instead of continuing."""
     assert _build.sources() == ["decode_attention", "flash_attention",
-                                "flash_attention_bwd", "rwkv6_scan",
-                                "rwkv6_scan_bwd", "ssm_scan", "ssm_scan_bwd"]
+                                "flash_attention_bwd", "mla_decode",
+                                "rwkv6_scan", "rwkv6_scan_bwd", "ssm_scan",
+                                "ssm_scan_bwd"]
     assert not _build._FNS
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build, "CUDA_HOME", tmp_path / "no-cuda")

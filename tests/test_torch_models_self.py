@@ -12,7 +12,6 @@ import torch
 
 from repro_torch.core import config as tconfig
 from repro_torch.models import api as tapi
-from repro_torch.models import attention as tatt
 
 ATOL = 1e-4          # the reference's own bound is 2e-3 (test_models.py)
 B, T = 2, 12
@@ -59,19 +58,13 @@ def test_prefill_matches_forward(model):
 
 
 def test_unported_families_raise():
-    """What the port does not run yet raises, pointing at ROADMAP.md: MLA
-    (at init and at apply), the dense prefix blocks of an MoE stack,
+    """What the port does not run yet raises, pointing at ROADMAP.md:
     enc-dec, audio, and a VLM (its family, and a modality frontend on a
-    decoder)."""
+    decoder).  MLA and the dense prefix blocks of an MoE stack run now
+    (test_torch_mla.py)."""
     cfg = Model("qwen1.5-0.5b").cfg
-    mla = dataclasses.replace(cfg, attention=dataclasses.replace(
-        cfg.attention, kind="mla"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tatt.apply_attention({}, torch.zeros(1, 1, 64), mla, mode="train")
-    prefix = dataclasses.replace(cfg, family="moe", moe=tconfig.MoEConfig(
-        num_experts=4, d_ff_expert=64, first_k_dense=1))
-    for bad in (mla, prefix) + tuple(dataclasses.replace(cfg, family=f)
-                                     for f in ("encdec", "audio", "vlm")):
+    for bad in (dataclasses.replace(cfg, family=f)
+                for f in ("encdec", "audio", "vlm")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tapi.init_params(torch.Generator(), bad)
     params = tapi.init_params(torch.Generator().manual_seed(0), cfg)

@@ -196,8 +196,36 @@ def test_ragged_batched_decode_matches_solo():
 def test_greedy_tokens_match_the_jax_server():
     """Converted weights, the same requests: the same greedy tokens, events
     and final slot positions."""
-    jcfg = _smoke_cfg(jax_get_arch)
-    tcfg = _smoke_cfg(tconfig.get_arch)
+    _assert_greedy_streams_match(_smoke_cfg(jax_get_arch),
+                                 _smoke_cfg(tconfig.get_arch))
+
+
+def test_greedy_tokens_match_the_jax_server_on_deepseek():
+    """deepseek-v2 smoke (MLA, its dense prefix block and MoE periods, at
+    the config's capacity factor): the port's server, admitting token by
+    token through ``mla_decode``, gives the JAX server's streams."""
+    arch = "deepseek-v2-236b"
+    jcfg, tcfg = (dataclasses.replace(
+        get(arch).smoke, param_dtype="float32", compute_dtype="float32")
+        for get in (jax_get_arch, tconfig.get_arch))
+    _assert_greedy_streams_match(jcfg, tcfg)
+
+
+def test_a_prefill_cache_fills_the_prefix_and_the_periods_of_a_slot():
+    """A one-row prefill cache goes into the slot's rows of every leaf: the
+    stacked periods (periods, batch, ...) and the prefix blocks' (batch,
+    ...), a leaf shorter than the slot's filling its leading positions."""
+    state = {"prefix": {"blk0": {"ckv": torch.zeros(3, 8, 2)}},
+             "periods": {"sub0": {"ckv": torch.zeros(2, 3, 8, 2)}}}
+    cache = {"prefix": {"blk0": {"ckv": torch.ones(1, 5, 2)}},
+             "periods": {"sub0": {"ckv": torch.full((2, 1, 5, 2), 2.0)}}}
+    tserve._write_cache_into_slot(state, cache, 1)
+    pre, per = state["prefix"]["blk0"]["ckv"], state["periods"]["sub0"]["ckv"]
+    assert pre[1, :5].eq(1).all() and per[:, 1, :5].eq(2).all()
+    assert pre.sum() == 10 and per.sum() == 40
+
+
+def _assert_greedy_streams_match(jcfg, tcfg):
     jparams = japi.init_params(jax.random.key(0), jcfg)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     rng = np.random.default_rng(5)
@@ -217,6 +245,14 @@ def test_greedy_tokens_match_the_jax_server():
         results.append(([r.out for r in reqs], server.events,
                          server.slot_pos.tolist()))
     assert results[0] == results[1]
+
+
+def test_main_serves_deepseek_smoke_on_cpu(capsys):
+    queue = tserve.main(["--arch", "deepseek-v2-236b", "--smoke", "--device",
+                         "cpu", "--requests", "3", "--slots", "2",
+                         "--max-new", "3", "--prompt-len", "4"])
+    assert all(r.done and len(r.out) == 3 for r in queue)
+    assert "served 3 requests, 9 tokens" in capsys.readouterr().out
 
 
 def test_main_smoke_on_cpu(capsys):
