@@ -29,8 +29,11 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    last checkpoint interval); deepseek-v2's absorbed MLA decode (128
    heads, latent 512, rope 64) at B 1 and 4 over caches of 512, 4096 and
    32768 positions, ragged lengths, the served step's 4 slots in a cache
-   of 128, and a smoke-like shape (bf16 held elementwise and by relative
-   RMS against the plain version's own rounding), and flash attention at
+   of 128, the profiled 32k cache and the same keys in rows of one length
+   (the split's balance), and a smoke-like shape (bf16 held elementwise
+   and by relative RMS against the plain version's own rounding; the
+   route, tensor cores or CUDA cores, and the µs of each launch beside
+   each row), and flash attention at
    MLA's expanded shape (hd 192, hd_v 128, 128 heads) and at the smoke's
    (24, 16), each beside SDPA on the same function and the list of SDPA's
    backends that take it;
@@ -523,8 +526,13 @@ def mla_case(torch, F, mops, B, H, L, R, T, kv_len, dtype, gen):
     flops = 2.0 * H * valid * (2 * L + R)
     big = B * T >= 4 * 32768
     # the bound takes the card's peak for the inputs' type (bf16 on the
-    # tensor cores); the kernel multiplies on the CUDA cores in f32 whatever
-    # the dtype, and their bound stands beside it
+    # tensor cores); a route that multiplies on the CUDA cores in f32 has
+    # their bound beside it
+    route = mops.route(dt, L, R)
+    rate = ("bfloat16 tensor cores (wgmma)" if route == "wgmma"
+            else "float32 FMA")
+    cores = ({} if route == "wgmma" else dict(bound_cuda_cores_ms=_bound(
+        nbytes, flops, "float32")["bound_ms"]))
     return dict(
         shape=f"B={B} H={H} L={L} R={R} T={T} kv_len={kv_len}",
         dtype=dtype, max_abs_err=err, excess_over_rtol=excess, **rms,
@@ -532,11 +540,10 @@ def mla_case(torch, F, mops, B, H, L, R, T, kv_len, dtype, gen):
                    lambda: mops.mla_decode_ref(*args), library,
                    plain_reps=(3, 3) if big else (7, 10)),
         sdpa=sdpa_backends(torch, library),
-        nsplit=mops._num_splits(B, H, T, torch.cuda.get_device_properties(
-            0).multi_processor_count),
-        route="cuda_cores", rate="float32 FMA",
-        bound_cuda_cores_ms=_bound(nbytes, flops, "float32")["bound_ms"],
-        **_bound(nbytes, flops, dtype))
+        launch_us=launch_us(torch, lambda: mops.mla_decode(*args)),
+        blocks=mops.grid_blocks(B, H, T, torch.cuda.get_device_properties(
+            0).multi_processor_count, *mops.ROUTES[route]),
+        route=route, rate=rate, **cores, **_bound(nbytes, flops, dtype))
 
 
 def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
@@ -1039,7 +1046,7 @@ def phase_profile(torch, cfg, params, device, steps, api, slots=4,
     # the port's own kernels: the __global__ functions of csrc/*.cu
     port = {}
     for name, value in kernels.items():
-        m = re.match(r"void \(anonymous namespace\)::(\w+)<", name)
+        m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)[<(]", name)
         if m and m[1] in PORT_KERNELS:
             port[name] = value
     if device_ms > 0:
@@ -1484,7 +1491,7 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, per_step,
     # the port's kernels of the path in the profiled step: (ms, launches)
     port = {stem: [0.0, 0] for stem, calls in per_step.items() if calls}
     for name, (us, count) in kern.items():
-        m = re.match(r"void \(anonymous namespace\)::(\w+)[<(]", name)
+        m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)[<(]", name)
         stem = KERNEL_SOURCE.get(m[1]) if m else None
         if stem in port:
             port[stem][0] += us / 1e3
@@ -2212,7 +2219,8 @@ def main(argv=None) -> int:
     # its backward's, mma.sync in K1's bf16 kernel and (3xTF32) in K2's f32
     # backward
     sass = {name: _tensor_core_ops(_build.target(name)) for name in
-            ("flash_attention", "decode_attention", "flash_attention_bwd")}
+            ("flash_attention", "decode_attention", "flash_attention_bwd",
+             "mla_decode")}
     for name, of_kernel in sass.items():
         for kernel, ops in sorted(of_kernel.items()):
             for op, (count, n_wait, first) in ops.items():
@@ -2221,6 +2229,7 @@ def main(argv=None) -> int:
     for name, kernel, op in (
             ("flash_attention", "wgmma_kernel", "HGMMA"),
             ("decode_attention", "mma_kernel", "HMMA"),
+            ("mla_decode", "mla_wgmma_kernel", "HGMMA"),
             ("flash_attention_bwd", "wg_dkdv_kernel", "HGMMA"),
             ("flash_attention_bwd", "wg_dq_kernel", "HGMMA"),
             ("flash_attention_bwd", "tf32_dkdv_kernel", "HMMA"),
@@ -2376,7 +2385,7 @@ def main(argv=None) -> int:
     # deepseek-v2's MLA: the absorbed decode (H 128, L 512, R 64) at B 1
     # and 4 over caches of 512, 4096 and 32768 positions (decode_32k), the
     # served step of phase 11 (4 slots in a cache of 128 at pos 96, 80, 64,
-    # 48: 4 splits), and a smoke-like shape; K2 at MLA's expanded prefill
+    # 48), and a smoke-like shape (the CUDA cores' route in bf16 too); K2 at MLA's expanded prefill
     # (hd 192, hd_v 128, 128 heads): one prompt of 256, 512 and a ragged 221
     # tokens, and a query offset with Sq < Sk; and at the smoke's (24, 16)
     for dtype in ("float32", "bfloat16"):
@@ -2402,10 +2411,14 @@ def main(argv=None) -> int:
             rows["flash_attention"].append(flash_case(
                 torch, F, fops, 2, 4, 4, Sq, Sk, 24, True, q_offset,
                 dtype=dtype, gen=gen, hd_v=16))
-    # the profiled step's cache: 4 slots at 4096, 8192, 16384, 32768
+    # the profiled step's cache: 4 slots at 4096, 8192, 16384, 32768; and
+    # the same 61,440 keys in rows of one length, which the split balanced
+    # over the batch should take in the same time
     mla_main = mla_case(torch, F, mops, 4, 128, 512, 64, 32768,
                         [4096, 8192, 16384, 32768], "bfloat16", gen)
-    rows["mla_decode"].append(mla_main)
+    mla_even = mla_case(torch, F, mops, 4, 128, 512, 64, 32768,
+                        [15360] * 4, "bfloat16", gen)
+    rows["mla_decode"] += [mla_main, mla_even]
     for name, rs in rows.items():
         for row in rs:
             _print_row(name, row)
@@ -2424,6 +2437,9 @@ def main(argv=None) -> int:
         "mla_decode": mla_main,          # bf16 B=4 T=32768, the profiled cache
     }
     _print_row("decode (main)", main_rows["decode_attention"])
+    mla_balance = mla_main["ms"] / mla_even["ms"]
+    print(f"mla_decode balance: kv_len [4096, 8192, 16384, 32768] takes "
+          f"{mla_balance:.3f}x the time of [15360] x 4 (same keys)")
 
     # ---- 3-5. qwen1.5-0.5b at full width ---------------------------------
     cfg = dataclasses.replace(get_arch("qwen1.5-0.5b").model,
@@ -2740,7 +2756,7 @@ def main(argv=None) -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
             {"card": card, "build_s": build_s, "ptxas": ptxas, "sass": sass,
-             "cases": rows,
+             "cases": rows, "mla_balance": mla_balance,
              "kernels": kernel_rows, "serve": served, "profile": prof,
              "ragged_err": ragged_err, "prefill": pre,
              "train_step_vs_cpu": step_vs_cpu, "train": trained,

@@ -2,44 +2,86 @@
 version for CPU tensors.
 
 A CUDA tensor launches ``csrc/mla_decode.cu`` or raises; nothing routes it
-to the plain version.  The kernel holds 16 query heads a block and splits
-the KV axis over ``_num_splits`` blocks per (row, head chunk), each row's
-valid keys shared out over them on the device; the last of them to finish
-merges their partial states, so a call is one launch.  It has no TPU
-counterpart: the reference computes this function in XLA einsums.
+to the plain version.  ``route`` picks the kernel by dtype and width (bf16
+at L 512, R 64 on the tensor cores, 64 heads a block; the rest on the CUDA
+cores, 16 heads a block).  Both split the batch's valid key tiles evenly
+over ``grid_blocks`` blocks per head chunk, on the device
+(``split_schedule`` is that arithmetic in Python), and a second launch
+merges the partial states of every row that more than one block touched,
+in block order.  It has no TPU counterpart: the reference computes this
+function in XLA einsums.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, counters, sm_count
+from repro_torch.kernels import _build, sm_count
 from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.mla_decode import ref
 from repro_torch.kernels.mla_decode.ref import mla_decode_ref
 
-# kernel launches (one per call), counted where the kernel is launched and
-# nowhere else
+# calls that launched the kernels (one per call: the split kernel and the
+# merge), counted where they are launched and nowhere else
 launches = 0
 
-HEADS = 16              # query heads a block holds (csrc/mla_decode.cu)
-KEYS = 32               # keys a tile
 MAX_LATENT = 512        # L at most: two output columns a thread of 256
-WAVES = 2               # blocks per SM that _num_splits aims at
-MAX_SPLITS = 64
+# route -> (query heads a block, keys a tile) (csrc/mla_decode.cu)
+ROUTES = {"wgmma": (64, 64), "cuda_cores": (16, 32)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P]
+_ARGTYPES = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P]
 
 
-def _num_splits(B: int, H: int, T: int, sm_count: int) -> int:
-    """Blocks the KV axis of a (row, head chunk) is split over: about
-    ``WAVES`` blocks per SM, at most one per tile of the cache and at most
-    ``MAX_SPLITS``."""
-    blocks = B * -(-H // HEADS)
-    return max(1, min(-(-T // KEYS), MAX_SPLITS,
-                      -(-WAVES * sm_count // blocks)))
+def route(dtype: torch.dtype, L: int, R: int) -> str:
+    """The kernel a CUDA call runs: ``"wgmma"`` (tensor cores) for bf16 at
+    DeepSeek's latent widths (L 512, R 64), else ``"cuda_cores"`` (f32
+    products, any L <= 512 and R that ``_check`` admits)."""
+    return ("wgmma" if dtype == torch.bfloat16 and (L, R) == (512, 64)
+            else "cuda_cores")
+
+
+def grid_blocks(B: int, H: int, T: int, sm_count: int, heads: int,
+                keys: int) -> int:
+    """Blocks per head chunk: one wave over the SMs (a block fills an SM's
+    shared memory), at most one per tile the cache can hold.  Read from the
+    shapes alone, so that the wrapper never waits for ``kv_len``."""
+    chunks = -(-H // heads)
+    return max(1, min(-(-sm_count // chunks), B * -(-T // keys)))
+
+
+def row_tiles(kv_len: Sequence[int], T: int, keys: int) -> List[int]:
+    """Key tiles of each row: its valid keys (``kv_len`` clamped to [0, T])
+    in tiles of ``keys``."""
+    return [-(-min(max(int(n), 0), T) // keys) for n in kv_len]
+
+
+def split_schedule(kv_len: Sequence[int], T: int, keys: int,
+                   nblocks: int) -> List[List[Tuple[int, int, int]]]:
+    """What each block of a head chunk works on, as the kernels compute it.
+
+    The rows' tiles are laid end to end (row 0's first); block ``s`` takes
+    the ``per = ceil(total / nblocks)`` tiles from ``s * per`` on, so no
+    block has more than ``per``.  Returns, per block, its segments ``(row,
+    first tile, end tile)`` in row order.  A segment that is its row's
+    every tile writes the output itself; otherwise it writes a partial
+    (m, l, acc) to slot ``block + row`` (distinct for every (block, row)
+    pair) and the merge adds a row's partials in block order.
+    """
+    tiles = row_tiles(kv_len, T, keys)
+    total = sum(tiles)
+    per = -(-total // nblocks)
+    out: List[List[Tuple[int, int, int]]] = [[] for _ in range(nblocks)]
+    off = 0
+    for b, n in enumerate(tiles):
+        if n:
+            for s in range(off // per, (off + n - 1) // per + 1):
+                lo, hi = max(off, s * per), min(off + n, (s + 1) * per)
+                out[s].append((b, lo - off, hi - off))
+        off += n
+    return out
 
 
 def _check(q_abs, q_rope, ckv, krope, kv_len) -> None:
@@ -97,23 +139,24 @@ def mla_decode(q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
     refuse_grad("mla_decode", q_abs, q_rope, ckv, krope)
     B, H, L = q_abs.shape
     T, R = krope.shape[1:]
-    nsplit = _num_splits(B, H, T, sm_count(q_abs.device))
+    heads, keys = ROUTES[route(q_abs.dtype, L, R)]
+    nblocks = grid_blocks(B, H, T, sm_count(q_abs.device), heads, keys)
     fn = _build.function("mla_decode", _ARGTYPES)
     out = torch.empty_like(q_abs)
-    ws = cnt = None
-    if nsplit > 1:   # each split's (m, l) and f32 acc, and the counters
-        ws = torch.empty(B * H * nsplit * (L + 2), dtype=torch.float32,
-                         device=q_abs.device)
-        cnt = counters("mla_decode", q_abs.device, B * -(-H // HEADS))
+    # each (head chunk, slot)'s (m, l) and f32 acc for its `heads` heads:
+    # slot block + row, at most nblocks + B of them
+    slots = -(-H // heads) * (nblocks + B) * heads
+    ws = torch.empty(slots * (L + 2), dtype=torch.float32,
+                     device=q_abs.device)
     stream = torch.cuda.current_stream(q_abs.device).cuda_stream
     err = fn(q_abs.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
              krope.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-             ws if ws is None else ws.data_ptr(),
-             cnt if cnt is None else cnt.data_ptr(), B, H, T, L, R, nsplit,
-             float(scale), _DTYPES[q_abs.dtype], stream)
+             ws.data_ptr(), B, H, T, L, R, nblocks, float(scale),
+             _DTYPES[q_abs.dtype], stream)
     _build.check("mla_decode", err)
     launches += 1
     return out
 
 
-__all__ = ["mla_decode", "mla_decode_ref", "ref"]
+__all__ = ["mla_decode", "mla_decode_ref", "ref", "route", "grid_blocks",
+           "split_schedule"]

@@ -301,16 +301,145 @@ def test_mla_decode_rejects_what_the_kernel_does_not_take():
         mops.mla_decode(*(t.to("meta") for t in (q, qr, ckv, kr, lens)), 0.1)
 
 
-@pytest.mark.parametrize("B,H,T,want", [
-    (4, 128, 128, 4),        # the served decode step: a cache of 128
-    (4, 128, 512, 9),
-    (4, 128, 32768, 9),
-    (1, 128, 32768, 33),
-    (1, 4, 16, 1),           # one tile
-    (64, 128, 4096, 1),      # the grid fills the card
+@pytest.mark.parametrize("B,H,T,sm,route,want", [
+    (4, 128, 128, 132, "wgmma", 8),         # the served step: 2 tiles a row
+    (4, 128, 32768, 132, "wgmma", 66),      # one wave over 2 head chunks
+    (1, 128, 32768, 132, "wgmma", 66),
+    (1, 4, 16, 132, "cuda_cores", 1),       # one tile
+    (4, 128, 32768, 132, "cuda_cores", 17),  # 8 chunks of 16 heads
+    (64, 128, 4096, 132, "wgmma", 66),
 ])
-def test_mla_decode_splits(B, H, T, want):
-    assert mops._num_splits(B, H, T, 132) == want
+def test_mla_decode_grid_blocks(B, H, T, sm, route, want):
+    assert mops.grid_blocks(B, H, T, sm, *mops.ROUTES[route]) == want
+
+
+@pytest.mark.parametrize("dtype,L,R,want", [
+    (torch.bfloat16, 512, 64, "wgmma"),
+    (torch.float32, 512, 64, "cuda_cores"),
+    (torch.bfloat16, 32, 8, "cuda_cores"),
+    (torch.bfloat16, 512, 128, "cuda_cores"),
+])
+def test_mla_decode_route(dtype, L, R, want):
+    assert mops.route(dtype, L, R) == want
+
+
+# kv_len patterns of phase 2 of chip_smoke.py, cycled over B rows: the
+# served step, the profiled 32k cache, the same keys in rows of one length,
+# and rows past T, empty or negative
+KV_LENS = {"served": [97, 81, 65, 49],
+           "main": [4096, 8192, 16384, 32768],
+           "balanced": [15360] * 4,
+           "edges": [0, 40000, 1, -3, 33, 64]}
+
+
+def _kv(kind, B):
+    pattern = KV_LENS[kind]
+    return [pattern[i % len(pattern)] for i in range(B)]
+
+
+@pytest.mark.parametrize("T", [16, 128, 32768])
+@pytest.mark.parametrize("kind", list(KV_LENS))
+@pytest.mark.parametrize("B", [1, 4, 64])
+def test_mla_decode_split_schedule(B, kind, T):
+    kv_len = _kv(kind, B)
+    for route, (heads, keys) in mops.ROUTES.items():
+        nblocks = mops.grid_blocks(B, 128, T, 132, heads, keys)
+        sched = mops.split_schedule(kv_len, T, keys, nblocks)
+        assert len(sched) == nblocks
+        tiles = [-(-min(max(n, 0), T) // keys) for n in kv_len]
+        total = sum(tiles)
+        cap = -(-total // nblocks)
+        # every valid tile of every row to exactly one block, in row order
+        # (the blocks' segments end to end), nothing at or past the row's
+        # clamped kv_len
+        walked = [(b, t) for segs in sched for b, t0, t1 in segs
+                  for t in range(t0, t1)]
+        assert walked == [(b, t) for b, n in enumerate(tiles)
+                          for t in range(n)]
+        assert all(t * keys < min(max(kv_len[b], 0), T) for b, t in walked)
+        assert all(sum(t1 - t0 for _, t0, t1 in segs) <= cap
+                   for segs in sched)
+        assert all(t1 > t0 for segs in sched for _, t0, t1 in segs)
+        assert not {b for segs in sched for b, _, _ in segs} & {
+            b for b, n in enumerate(kv_len) if n <= 0}
+        # a partial's slot block + row is its own
+        slots = [s + b for s, segs in enumerate(sched) for b, t0, t1 in segs
+                 if (t0, t1) != (0, tiles[b])]
+        assert len(slots) == len(set(slots))
+        assert all(0 <= x < nblocks + B for x in slots)
+
+
+def _fold(run, part):
+    """mla_merge_kernel's step: partial (m, l, acc) folded into the running
+    one, m in log2 units."""
+    (m, l, acc), (mk, lk, ak) = run, part
+    mn = torch.maximum(m, mk)
+    c, w = torch.exp2(m - mn), torch.exp2(mk - mn)
+    return mn, l * c + lk * w, acc * c[:, None] + ak * w[:, None]
+
+
+def _emulate(q_abs, q_rope, ckv, krope, kv_len, scale, keys, nblocks):
+    """The kernels' arithmetic in f32 on the CPU: each block's segments
+    tile by tile (online softmax, m in log2 units against the running max),
+    whole rows written, partials folded in block order as the merge kernels
+    do."""
+    B, H, L = q_abs.shape
+    T = ckv.shape[1]
+    k = torch.cat([ckv, krope], -1)
+    q = torch.cat([q_abs, q_rope], -1)
+    c = scale * 1.4426950408889634
+    out = torch.zeros(B, H, L)
+    parts = {}
+    sched = mops.split_schedule(kv_len.tolist(), T, keys, nblocks)
+    tiles = mops.row_tiles(kv_len.tolist(), T, keys)
+    for s, segs in enumerate(sched):
+        for b, t0, t1 in segs:
+            m = torch.full((H,), -1e30)
+            l, acc = torch.zeros(H), torch.zeros(H, L)
+            n = min(max(int(kv_len[b]), 0), T)
+            for t in range(t0, t1):
+                lo, hi = t * keys, min(n, t * keys + keys)
+                sc = q[b] @ k[b, lo:hi].T
+                mn = torch.maximum(m, sc.max(-1).values * c)
+                p = torch.exp2(sc * c - mn[:, None])
+                corr = torch.exp2(m - mn)
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[:, None] + p @ ckv[b, lo:hi]
+                m = mn
+            if (t0, t1) == (0, tiles[b]):
+                out[b] = acc / l.clamp_min(1e-30)[:, None]
+            else:
+                parts.setdefault(b, []).append((m, l, acc))
+    for b, ps in parts.items():      # in block order
+        run = (torch.full((H,), -1e30), torch.zeros(H), torch.zeros(H, L))
+        for part in ps:
+            run = _fold(run, part)
+        out[b] = run[2] / run[1].clamp_min(1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("keys,nblocks", [(64, 7), (32, 5), (8, 3), (8, 64)])
+@pytest.mark.parametrize("kind,B,T", [
+    ("served", 4, 128), ("main", 4, 320), ("balanced", 4, 160),
+    ("edges", 6, 48), ("served", 1, 128), ("random", 64, 48)])
+def test_mla_decode_split_and_merge_emulated(kind, B, T, keys, nblocks):
+    rng = np.random.default_rng(B + T + keys)
+    H, L, R = 4, 32, 8
+    if kind == "random":
+        kv = rng.integers(-2, T + 8, size=B).tolist()
+    elif kind == "main":
+        kv = [40, 80, 160, 320]
+    elif kind == "balanced":
+        kv = [150] * 4
+    else:
+        kv = _kv(kind, B)
+    arrs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((B, H, L), (B, H, R), (B, T, L), (B, T, R))]
+    kv_len = torch.tensor(kv, dtype=torch.int32)
+    scale = 1.0 / math.sqrt(24)
+    got = _emulate(*arrs, kv_len, scale, keys, nblocks)
+    want = mops.mla_decode_ref(*arrs, kv_len, scale)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
 
 
 def _k2_case(B, H, Sq, Sk, seed):
