@@ -104,7 +104,20 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    token-by-token decode (dropless MoE) in bf16 against bf16's own
    rounding and, on the first 2 layers in f32, at 2e-3; and one MLA block
    (prefill, then 8 decode steps) at full width in f32 on the card against
-   the CPU's plain versions at 2e-3.
+   the CPU's plain versions at 2e-3;
+12. internvl2-2b (a decoder behind 1,024 patch embeddings, 1.89 B params)
+   and seamless-m4t-large-v2 (24 + 24 layers, cross-attention, 1.63 B
+   params), each whole in bf16 from random weights: prefill 4 rows (1,024
+   patches and 64 tokens; 1,024 frames and 16 tokens) through
+   ``make_prefill_step`` (flash attention once a layer; the enc-dec's
+   encoder, self- and cross-attention each once a layer), grow the self
+   cache and take 32 greedy ``make_serve_step`` steps (flash-decode once a
+   layer; the enc-dec's self- and cross-attention each once a layer);
+   prefill and decode against one forward in bf16 against bf16's own
+   rounding; the first 2 layers in f32 on the card against the CPU
+   (forward, prefill, decode, one train step) at 2e-3; 3 bf16 steps of
+   ``launch/train.py`` (K2 and its backward as in the prefill).  Phase 2
+   holds the kernels at these shapes too.
 
 The last line is ``{"ok": true, "device": {...}}``; ``--out`` also writes
 every number of the run to a JSON file.  The script needs a CUDA
@@ -1308,7 +1321,7 @@ def _leaf_errs(got, want):
 
 def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
                             OptimizerConfig, pipeline, want, batch=2, seq=256,
-                            remat_modes=("dots", "full")):
+                            remat_modes=("dots", "full"), batch_of=None):
     """One train step on the card and on the CPU from the same params and
     batch (f32).  The gradient of every leaf (``m`` after one step from zero
     moments is 0.1 times it) agrees to 2e-3 of the leaf's largest value
@@ -1319,12 +1332,14 @@ def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
     whatever its gradient's size.  The card's step must launch the kernels
     ``want`` names, each the given number of times, and no other.  Then the
     same step under each of ``remat_modes`` on the card gives every leaf's
-    gradient to 1e-5."""
+    gradient to 1e-5.  ``batch_of(tokens)`` makes the step's batch (on the
+    CPU) from the pipeline's tokens; by default the tokens alone."""
     opt_cfg = OptimizerConfig(lr=3e-4, warmup_steps=5, total_steps=30)
     cpu_params = api.init_params(torch.Generator().manual_seed(0), cfg)
     data = pipeline.SyntheticTokenPipeline(pipeline.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
     tokens = torch.from_numpy(data.batch_at(0)["tokens"])
+    batch_cpu = (batch_of or (lambda t: {"tokens": t}))(tokens)
     results = {}
     for where in ("cuda", "cpu"):
         dev = device if where == "cuda" else torch.device("cpu")
@@ -1333,7 +1348,7 @@ def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
         reset_counts(kernels)
         t0 = time.perf_counter()
         params, state, metrics = step(params, adamw.init_opt_state(
-            params, opt_cfg), {"tokens": tokens.to(dev)})
+            params, opt_cfg), {k: v.to(dev) for k, v in batch_cpu.items()})
         loss = float(metrics["loss"])
         secs = time.perf_counter() - t0
         results[where] = dict(params=params, loss=loss, s=secs,
@@ -1386,7 +1401,7 @@ def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
         params = _to(torch, cpu_params, device)
         step = steps.make_train_step(cfg, opt_cfg, remat=mode)
         _, state, metrics = step(params, adamw.init_opt_state(
-            params, opt_cfg), {"tokens": tokens.to(device)})
+            params, opt_cfg), {k: v.to(device) for k, v in batch_cpu.items()})
         errs = _leaf_errs(_grads_of(adamw, state, opt_cfg.b1), gpu["grads"])
         remat[mode] = dict(loss=float(metrics["loss"]),
                            grad_norm=float(metrics["grad_norm"]),
@@ -1489,13 +1504,9 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, per_step,
     device_ms = sum(us for us, _ in kern.values()) / 1e3
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
     # the port's kernels of the path in the profiled step: (ms, launches)
-    port = {stem: [0.0, 0] for stem, calls in per_step.items() if calls}
-    for name, (us, count) in kern.items():
-        m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)[<(]", name)
-        stem = KERNEL_SOURCE.get(m[1]) if m else None
-        if stem in port:
-            port[stem][0] += us / 1e3
-            port[stem][1] += count
+    found = port_kernels_of(kern)
+    port = {stem: found.get(stem, (0.0, 0)) for stem, calls in
+            per_step.items() if calls}
     tok_s = batch * seq / (step_ms / 1e3)
     print(f"trained {n_steps} steps of B={batch} x S={seq} in {dtype} in "
           f"{wall:.1f} s (checkpoint included); loss {losses[0]:.4f} -> "
@@ -1509,7 +1520,7 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, per_step,
         print(f"profiled step {profile_at}: {device_ms:.2f} ms device kernel "
               f"time against {step_ms:.1f} ms a step: device idle "
               f"{1 - device_ms / step_ms:.1%}; "
-              + ", ".join(f"{stem} {ms:.3f} ms in {count} launches"
+              + ", ".join(f"{stem} {ms:.3f} ms in {count:.0f} launches"
                           for stem, (ms, count) in port.items()))
         for name, (us, count) in top:
             print(f"  {us / 1e3:8.3f} ms {count:5d}x  {name[:90]}")
@@ -2167,6 +2178,348 @@ def moe_decode_ms(torch, cfg, params, device, slots=4):
             moe, x, cfg, compute_dtype=x.dtype), reps=5, inner=5)[0]
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: a decoder behind a modality prefix (internvl2-2b) and the
+# encoder-decoder (seamless-m4t-large-v2), at full width and depth
+# ---------------------------------------------------------------------------
+
+
+def embeds_key(cfg) -> str:
+    """The batch key of the frontend stub's embeddings."""
+    return "frames" if cfg.family in ("audio", "encdec") else "prefix_embeds"
+
+
+def stub_batch(torch, np, cfg, device, batch, n_embeds, n_tokens, seed=0):
+    """A prefill batch: ``n_embeds`` normal embeddings a row (the frontend
+    stub's patches or frames) and ``n_tokens`` prompt tokens, from
+    ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                  size=(batch, n_tokens))
+    return {embeds_key(cfg): torch.randn(batch, n_embeds, cfg.d_model,
+                                         generator=gen, device=device),
+            "tokens": torch.from_numpy(tokens).to(device)}
+
+
+def self_positions(cfg, batch) -> int:
+    """Positions of the self-attention cache after a prefill of ``batch``:
+    the prefix and the prompt for a VLM, the prompt for an enc-dec."""
+    n = batch["tokens"].shape[1]
+    return n + (batch["prefix_embeds"].shape[1] if "prefix_embeds" in batch
+                else 0)
+
+
+def port_kernels_of(kern: dict, n: int = 1) -> dict:
+    """{source stem: (device ms, launches)} per call of the port's kernels
+    in a profiler's {kernel: (µs, launches)} over ``n`` calls."""
+    out = {}
+    for name, (us, count) in kern.items():
+        m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)[<(]", name)
+        stem = KERNEL_SOURCE.get(m[1]) if m else None
+        if stem:
+            ms, c = out.get(stem, (0.0, 0.0))
+            out[stem] = (ms + us / n / 1e3, c + count / n)
+    return out
+
+
+def profile_calls(torch, fn, n: int) -> dict:
+    """Host wall ms a call of ``fn`` (ending in a synchronise), then device
+    kernel ms a call over ``n`` profiled calls, the device's idle share and
+    the port's kernels' (ms, launches) a call."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / n * 1e3
+    kern = profiled_kernels(torch, fn, n)
+    device_ms = sum(us for us, _ in kern.values()) / n / 1e3
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:6]
+    return dict(wall_ms=wall_ms, device_ms=device_ms or None,
+                idle=1 - device_ms / wall_ms if device_ms else None,
+                port=port_kernels_of(kern, n),
+                top=[(_short(k), us / n / 1e3, c / n) for k, (us, c) in top])
+
+
+def _print_profile(what, prof):
+    if prof["device_ms"]:
+        print(f"  {what}: {prof['wall_ms']:.3f} ms host wall, "
+              f"{prof['device_ms']:.4f} ms device kernel time, device idle "
+              f"{prof['idle']:.1%}; port kernels "
+              + ", ".join(f"{stem} {ms:.4f} ms in {c:.0f} launches"
+                          for stem, (ms, c) in prof["port"].items()))
+        for name, ms, c in prof["top"]:
+            print(f"    {ms:8.4f} ms {c:5.0f}x  {name}")
+    else:
+        print(f"  {what}: {prof['wall_ms']:.3f} ms host wall; device time not "
+              "measured (the profiler recorded no device kernels)")
+
+
+def serve_stub_model(torch, cfg, params, device, kernels, steps, api, batch,
+                     n_new, want_prefill, want_step):
+    """Prefill ``batch`` through ``make_prefill_step``, grow the self cache
+    to the prompt's positions plus ``n_new``, then ``n_new`` greedy
+    ``make_serve_step`` calls.  The prefill must launch the kernels
+    ``want_prefill`` names and each step those ``want_step`` names, each the
+    given number of times, and no plain version.  Returns the timings, the
+    tokens fed and each step's logits."""
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_serve_step(cfg)
+    B = batch["tokens"].shape[0]
+    S = self_positions(cfg, batch)
+    reset_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last, cache = prefill(params, batch)
+    tok = last.reshape(B, -1).argmax(dim=-1)
+    tok.cpu()
+    ttft_s = time.perf_counter() - t0
+    launches_prefill = launches_of(kernels)
+    check(launches_prefill == {name: want_prefill.get(name, 0)
+                               for name in kernels}
+          and all(ops.ref.calls == 0 for ops in kernels.values()),
+          f"prefill launched {launches_prefill}, want {want_prefill}")
+    state = api.grow_decode_state(cfg, cache, S + n_new)
+    del cache
+    reset_counts(kernels)
+    fed, outs, times = [], [], []
+    for i in range(n_new):
+        t0 = time.perf_counter()
+        fed.append(tok)
+        lg, state = decode(params, state, tok, torch.full(
+            (B,), S + i, dtype=torch.int32, device=device))
+        tok = lg.argmax(dim=-1)
+        tok.cpu()                         # the server's one sync a step
+        times.append(time.perf_counter() - t0)
+        outs.append(lg)
+    launches_decode = launches_of(kernels)
+    want = {name: n_new * want_step.get(name, 0) for name in kernels}
+    check(launches_decode == want and all(ops.ref.calls == 0
+                                          for ops in kernels.values()),
+          f"{n_new} decode steps launched {launches_decode}, want {want}")
+    check(all(bool(torch.isfinite(lg).all()) for lg in outs),
+          "non-finite decode logits")
+    tpot_ms = sorted(times[1:])[len(times[1:]) // 2] * 1e3
+    tok_s = B * n_new / sum(times)
+    print(f"  prefill of {B} rows x {S} positions: TTFT {ttft_s * 1e3:.1f} ms "
+          f"(first call, host wall to the first tokens); {n_new} greedy "
+          f"decode steps: TPOT {tpot_ms:.3f} ms median host wall (first "
+          f"{times[0] * 1e3:.1f} ms), {tok_s:.1f} tok/s; launches prefill "
+          f"{ {k: v for k, v in launches_prefill.items() if v} }, a step "
+          f"{ {k: v / n_new for k, v in launches_decode.items() if v} }",
+          flush=True)
+    prof_prefill = profile_calls(torch, lambda: prefill(params, batch), 3)
+    pos = torch.full((B,), S + n_new - 1, dtype=torch.int32, device=device)
+    prof_step = profile_calls(
+        torch, lambda: decode(params, state, tok, pos)[0].argmax(-1).cpu(), 10)
+    _print_profile("prefill", prof_prefill)
+    _print_profile(f"decode step (B={B}, {S + n_new} positions)", prof_step)
+    return dict(ttft_ms=ttft_s * 1e3, tpot_ms=tpot_ms, first_step_ms=times[0]
+                * 1e3, tok_s=tok_s, launches_prefill=launches_prefill,
+                launches_decode=launches_decode, prefill=prof_prefill,
+                step=prof_step, last=last.reshape(B, -1), fed=fed, outs=outs,
+                S=S)
+
+
+def check_against_forward(torch, cfg, params, kernels, steps, api, batch,
+                          served):
+    """The served model against one forward (bf16, as served): prefill's
+    logits against forward's at the prompt's last position, and every
+    decode step's against forward's over the prompt and the tokens fed, each
+    by relative RMS within twice the distance of the bf16 prefill from the
+    same prefill with the products in f32, plus 1e-3 (``PERF.md`` §2).  No
+    plain version runs."""
+    n_tok = batch["tokens"].shape[1]
+    whole = dict(batch, tokens=torch.cat(
+        [batch["tokens"], torch.stack(served["fed"], dim=1)], dim=1))
+    reset_counts(kernels)
+    with torch.no_grad():
+        logits, _ = api.forward(params, cfg, whole, remat="none")
+        last32, _ = steps.make_prefill_step(dataclasses.replace(
+            cfg, compute_dtype="float32"))(params, batch)
+    check(all(ops.ref.calls == 0 for ops in kernels.values()),
+          "the plain versions ran on the card")
+    off = logits.shape[1] - whole["tokens"].shape[1]      # prefix positions
+    n_new = len(served["outs"])
+    fwd_last = logits[:, off + n_tok - 1]
+    fwd_dec = logits[:, off + n_tok:off + n_tok + n_new].transpose(0, 1)
+    dec = torch.stack(served["outs"])
+    rounding = _rel_rms(served["last"], last32.reshape(served["last"].shape))
+    err_pre = _rel_rms(served["last"], fwd_last)
+    err_dec = _rel_rms(dec, fwd_dec)
+    agree = (served["last"].argmax(-1) == fwd_last.argmax(-1)).float().mean()
+    print(f"  bf16: prefill vs forward relative RMS {err_pre:.3e}, decode vs "
+          f"forward {err_dec:.3e} over {n_new} steps; bf16 vs f32 prefill "
+          f"{rounding:.3e} (limit {2 * rounding + 1e-3:.3e}); prefill's "
+          f"greedy token = forward's in {agree.item():.0%} of rows",
+          flush=True)
+    check(bool(torch.isfinite(logits).all()), "non-finite forward logits")
+    check(err_pre <= 2 * rounding + 1e-3 and err_dec <= 2 * rounding + 1e-3,
+          "prefill or decode and forward differ beyond bf16 rounding")
+    return dict(prefill_vs_forward=err_pre, decode_vs_forward=err_dec,
+                bf16_vs_f32=rounding)
+
+
+def first_layers(torch, params, n: int):
+    """A copy of ``params`` with each stacked layer axis (the LM's periods,
+    the enc-dec's encoder and decoder) cut to its first ``n`` layers, in
+    f32."""
+    def cut(tree, key):
+        return _cast(tree, lambda t: t[:n]) if key in (
+            "periods", "encoder", "decoder") else tree
+
+    def walk(tree):
+        return {k: walk(cut(v, k)) if isinstance(v, dict) else v
+                for k, v in tree.items()}
+
+    return _cast(walk(params),
+                 lambda t: t.float() if t.is_floating_point() else t.clone())
+
+
+def card_vs_cpu(torch, np, cfg32, params32, device, kernels, steps, api, batch,
+                want, n_new=4, tol=PREFILL_TOL):
+    """Forward, prefill and ``n_new`` decode steps (fixed tokens, after the
+    self cache grows) of an f32 model on the card and on the CPU from the
+    same params and batch: every output and cache leaf within ``tol``.  The
+    card's run must launch the kernels ``want`` names, each the given
+    number of times, and no plain version."""
+    B = batch["tokens"].shape[0]
+    S = self_positions(cfg32, batch)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg32.vocab_size, size=(n_new, B)))
+    out = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        p = params32 if where == "card" else _to(torch, params32, dev)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fwd, _ = api.forward(p, cfg32, b, remat="none")
+            last, cache = steps.make_prefill_step(cfg32)(p, b)
+            st = api.grow_decode_state(cfg32, cache, S + n_new)
+            dec = [steps.make_serve_step(cfg32)(
+                p, st, toks[i].to(dev), torch.full(
+                    (B,), S + i, dtype=torch.int32, device=dev))[0]
+                   for i in range(n_new)]
+        got = {"forward": fwd, "prefill": last.reshape(B, -1),
+               "decode": torch.stack(dec), **dict(_paths(cache))}
+        if where == "card":
+            torch.cuda.synchronize()
+            launches = launches_of(kernels)
+            check(launches == {name: want.get(name, 0) for name in kernels}
+                  and all(ops.ref.calls == 0 for ops in kernels.values()),
+                  f"the card's run launched {launches}, want {want}")
+        out[where] = ({k: v.cpu() for k, v in got.items()},
+                      time.perf_counter() - t0)
+    (card, _), (cpu, cpu_s) = out["card"], out["cpu"]
+    errs, bad = {}, []
+    for key, want_t in cpu.items():
+        errs[key], b = _excess(torch, card[key], want_t, tol)
+        if b:
+            bad.append(key)
+    print(f"  2 layers in f32, card vs CPU (B={B}, {S} positions, {n_new} "
+          f"decode steps): max err " + ", ".join(
+              f"{k} {e:.2e}" for k, e in errs.items())
+          + f" (atol {tol['atol']}, rtol {tol['rtol']}); CPU {cpu_s:.1f} s",
+          flush=True)
+    check(not bad, f"card and CPU disagree: {bad}")
+    return dict(errs=errs, launches=launches, cpu_s=cpu_s)
+
+
+def phase_stub_model(torch, np, cfg, device, kernels, steps, api, train,
+                     adamw, OptimizerConfig, pipeline, *, n_embeds, n_tokens,
+                     k2_layer, k1_layer, train_seq):
+    """Phase 12 for one model of ``cfg`` (bf16, full width and depth, random
+    weights from seed 0): serve 4 rows of ``n_embeds`` stub embeddings and
+    ``n_tokens`` prompt tokens (K2 ``k2_layer`` times a layer in prefill,
+    K1 ``k1_layer`` times a layer a decode step), 32 greedy steps; check
+    them against one forward; hold the first 2 layers in f32 on the card to
+    the CPU (forward, prefill, decode, one train step); then 3 steps of
+    ``launch/train.py`` at batch 2 x ``train_seq`` (K2 and its backward
+    ``k2_layer`` times a layer a step)."""
+    t_phase = time.perf_counter()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    gbytes = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    del leaves
+    layers = cfg.num_layers + cfg.encoder_layers
+    a = cfg.attention
+    print(f"  {cfg.name}: {layers} layers (encoder {cfg.encoder_layers}), "
+          f"d_model {cfg.d_model}, {a.num_heads}/{a.num_kv_heads} heads of "
+          f"{a.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.frontend.kind} stub; {n_params / 1e9:.3f} B "
+          f"{cfg.param_dtype} params, {gbytes:.2f} GB; init {init_s:.1f} s "
+          f"with {held_gb:.2f} GB held before it", flush=True)
+    batch = stub_batch(torch, np, cfg, device, 4, n_embeds, n_tokens)
+    want_prefill = {"flash_attention": k2_layer * cfg.num_layers}
+    want_step = {"decode_attention": k1_layer * cfg.num_layers}
+    secs, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        secs[name] = time.perf_counter() - mark[0]
+        mark[0] = time.perf_counter()
+
+    served = serve_stub_model(torch, cfg, params, device, kernels, steps,
+                              api, batch, 32, want_prefill, want_step)
+    lap("serve and profile")
+    vs_forward = check_against_forward(torch, cfg, params, kernels, steps,
+                                       api, batch, served)
+    lap("against forward")
+    for key in ("last", "fed", "outs"):
+        served.pop(key)
+    cfg32 = dataclasses.replace(cfg, num_layers=2, encoder_layers=min(
+        cfg.encoder_layers, 2), param_dtype="float32", compute_dtype="float32")
+    p32 = first_layers(torch, params, 2)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    small = stub_batch(torch, np, cfg32, torch.device("cpu"), 2, 32, 16,
+                       seed=1)
+    vs_cpu = card_vs_cpu(torch, np, cfg32, p32, device, kernels, steps, api,
+                         small, {"flash_attention": 2 * k2_layer * 2,
+                                 "decode_attention": 4 * k1_layer * 2})
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("2 layers card vs CPU")
+    step_vs_cpu = phase_train_step_vs_cpu(
+        torch, cfg32, device, kernels, steps, api, adamw, OptimizerConfig,
+        pipeline, {"flash_attention": 2 * k2_layer,
+                   "flash_attention_bwd": 2 * k2_layer}, seq=128,
+        remat_modes=(), batch_of=lambda tokens: train.model_batch(
+            cfg32, {"tokens": tokens}, torch.Generator().manual_seed(0)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train step vs CPU")
+    torch.cuda.reset_peak_memory_stats()
+    trained = phase_train(
+        torch, np, cfg, kernels, steps, train, adamw,
+        {"flash_attention": k2_layer * cfg.num_layers,
+         "flash_attention_bwd": k2_layer * cfg.num_layers},
+        n_steps=3, batch=2, seq=train_seq, profile_at=2, dtype="bfloat16",
+        converge=False, arch=cfg.name)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("train.main")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  {cfg.name}: training peak {peak_gb:.1f} GB allocated; "
+          f"{phase_s:.1f} s for the model: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()), flush=True)
+    return dict(params=n_params, gbytes=gbytes, init_s=init_s,
+                held_gb=held_gb, serve=served, vs_forward=vs_forward,
+                vs_cpu=vs_cpu, train_step_vs_cpu=step_vs_cpu, train=trained,
+                train_peak_gb=peak_gb, phase_s=phase_s, secs=secs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, help="write every number here (JSON)")
@@ -2253,6 +2606,11 @@ def main(argv=None) -> int:
     print("== 2. kernels against their plain versions on the card", flush=True)
     gen = torch.Generator(device=device).manual_seed(0)
     rows = {name: [] for name in kernels}
+    # phase 12's shapes, by kernel and use, printed with the kernel's rows
+    slice12 = {key: [] for key in (
+        "k1 internvl2 decode", "k1 seamless cross decode",
+        "k2 seamless encoder", "k2 seamless cross", "k2 internvl2 prefill",
+        "bwd seamless train", "bwd internvl2 train")}
     for dtype in ("float32", "bfloat16"):
         for B in (4, 8):
             for S in (512, 1024):
@@ -2263,12 +2621,30 @@ def main(argv=None) -> int:
         rows["decode_attention"].append(decode_case(   # minitron's heads
             torch, F, dops, 4, 32, 8, 1024, 128, [1, 333, 777, 1024], dtype,
             gen))
+        # phase 12's decode steps: internvl2's (GQA 16/8, hd 128, 1,088
+        # cached positions and up to 32 generated) and seamless's
+        # cross-attention (16/16, hd 64, every row over all 1,024 frames)
+        slice12["k1 internvl2 decode"].append(decode_case(
+            torch, F, dops, 4, 16, 8, 1120, 128, [1089, 1100, 1111, 1120],
+            dtype, gen))
+        slice12["k1 seamless cross decode"].append(decode_case(
+            torch, F, dops, 4, 16, 16, 1024, 64, [1024] * 4, dtype, gen))
         for case in ((4, 16, 16, 512, 512, 64, True, 0),
                      (4, 16, 16, 256, 256, 64, True, 0),      # main-path prefill
                      (2, 16, 16, 128, 512, 64, True, 384),    # q_offset
                      (2, 16, 16, 200, 520, 64, False, 320),   # Sq != Sk
                      (2, 32, 8, 512, 512, 128, True, 0)):     # minitron's GQA
             rows["flash_attention"].append(
+                flash_case(torch, F, fops, *case, dtype=dtype, gen=gen))
+        # phase 12's prefills: seamless's encoder (non-causal, 1,024 frames)
+        # and cross-attention (16 prompt tokens over the 1,024 frames), and
+        # internvl2's causal prefill over 1,024 patches and 64 tokens
+        for key, case in (
+                ("k2 seamless encoder", (4, 16, 16, 1024, 1024, 64, False, 0)),
+                ("k2 seamless cross", (4, 16, 16, 16, 1024, 64, False, 0)),
+                ("k2 internvl2 prefill",
+                 (4, 16, 8, 1088, 1088, 128, True, 0))):
+            slice12[key].append(
                 flash_case(torch, F, fops, *case, dtype=dtype, gen=gen))
         # rwkv6-1.6b: one prompt's 32 heads of 64 over 16-256 tokens, four
         # prompts at once, two odd shapes (ragged key rows and columns), a
@@ -2330,6 +2706,14 @@ def main(argv=None) -> int:
     for hd, dtype in ((30, "float32"), (36, "bfloat16")):
         rows["flash_attention_bwd"].append(flash_bwd_case(
             torch, F, fops, bops, 2, 4, 2, 130, 130, hd, True, 0, dtype, gen))
+    # phase 12's training shapes, bf16: seamless's encoder and cross layers
+    # (non-causal, 512 frames and 512 tokens) and internvl2's (causal, 256
+    # patches and 512 tokens)
+    for key, case in (
+            ("bwd seamless train", (2, 16, 16, 512, 512, 64, False, 0)),
+            ("bwd internvl2 train", (2, 16, 8, 768, 768, 128, True, 0))):
+        slice12[key].append(flash_bwd_case(
+            torch, F, fops, bops, *case, dtype="bfloat16", gen=gen))
     # jamba CARD, u/B/C bf16 and dt f32: one prompt's prefill (h0 = 0) at
     # 16-256 tokens and at 2048, and the decode step of 4 slots from their
     # states, out of place and in place (h_out=h0, as the model calls it)
@@ -2424,6 +2808,9 @@ def main(argv=None) -> int:
             _print_row(name, row)
             if "sdpa" in row:
                 print(f"    SDPA backends: {row['sdpa']}")
+    for key, rs in slice12.items():
+        for row in rs:
+            _print_row(key, row)
     # each kernel at the shape the main paths give it (f32, as served)
     main_rows = {
         "decode_attention": decode_case(torch, F, dops, 4, 16, 16, 512, 64,
@@ -2705,6 +3092,28 @@ def main(argv=None) -> int:
     phase11_s = time.perf_counter() - t11
     print(f"phase 11: {phase11_s:.1f} s", flush=True)
 
+    # ---- 12. internvl2-2b and seamless-m4t-large-v2, whole, bf16 ----------
+    t12 = time.perf_counter()
+    stub_kw = dict(torch=torch, np=np, device=device, kernels=kernels,
+                   steps=steps, api=api, train=train, adamw=adamw,
+                   OptimizerConfig=OptimizerConfig, pipeline=pipeline)
+    print("== 12a. internvl2-2b at full width and depth, bf16: 4 rows of "
+          "1,024 patch embeddings and 64 prompt tokens, 32 greedy steps; "
+          "against one forward; 2 layers in f32 card = CPU; 3 train steps "
+          "of 256 patches + 512 tokens", flush=True)
+    vlm = phase_stub_model(cfg=get_arch("internvl2-2b").model, n_embeds=1024,
+                           n_tokens=64, k2_layer=1, k1_layer=1, train_seq=512,
+                           **stub_kw)
+    print("== 12b. seamless-m4t-large-v2 at full width and depth, bf16: 4 "
+          "rows of 1,024 frames and 16 prompt tokens, 32 greedy steps; "
+          "against one forward; 2 + 2 layers in f32 card = CPU; 3 train "
+          "steps of 512 frames + 512 tokens", flush=True)
+    audio = phase_stub_model(cfg=get_arch("seamless-m4t-large-v2").model,
+                             n_embeds=1024, n_tokens=16, k2_layer=3,
+                             k1_layer=2, train_seq=1024, **stub_kw)
+    phase12_s = time.perf_counter() - t12
+    print(f"phase 12: {phase12_s:.1f} s", flush=True)
+
     # ---- summary ---------------------------------------------------------
     launches = {"decode_attention": served["launches"]["decode_attention"],
                 "flash_attention": pre["launches"]["flash_attention"],
@@ -2752,6 +3161,28 @@ def main(argv=None) -> int:
         "shape", "dtype", "max_abs_err", "ms", "wall_ms", "plain_ms",
         "bound_ms", "bound_by", "library_ms")}
     k2_row["mla"]["launches"] = k2_mla_launches
+    # phase 12's shapes (bf16), each with its launches in phase 12's run
+    row_of = {r["name"]: r for r in kernel_rows}
+    for name, key, launches_12 in (
+            ("decode_attention", "k1 internvl2 decode",
+             vlm["serve"]["launches_decode"]["decode_attention"]),
+            ("decode_attention", "k1 seamless cross decode",
+             audio["serve"]["launches_decode"]["decode_attention"] // 2),
+            ("flash_attention", "k2 internvl2 prefill",
+             vlm["serve"]["launches_prefill"]["flash_attention"]),
+            ("flash_attention", "k2 seamless encoder",
+             audio["serve"]["launches_prefill"]["flash_attention"] // 3),
+            ("flash_attention", "k2 seamless cross",
+             audio["serve"]["launches_prefill"]["flash_attention"] // 3),
+            ("flash_attention_bwd", "bwd internvl2 train",
+             vlm["train"]["launches"]["flash_attention_bwd"]),
+            ("flash_attention_bwd", "bwd seamless train",
+             audio["train"]["launches"]["flash_attention_bwd"])):
+        sub_row = next(r for r in slice12[key] if r["dtype"] == "bfloat16")
+        row_of[name][key.split(" ", 1)[1]] = dict(
+            {k: sub_row[k] for k in (
+                "shape", "dtype", "max_abs_err", "ms", "wall_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}, launches=launches_12)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
@@ -2778,6 +3209,8 @@ def main(argv=None) -> int:
              "profile_deepseek_32k": prof_d32k, "moe_decode_ms": moe_ms,
              "moe_share": moe_share, "prefill_deepseek": pre_d,
              "prefill_deepseek_f32": pre_d32, "mla_block": block_d,
+             "slice12_cases": slice12, "internvl2": vlm,
+             "seamless": audio, "phase12_s": phase12_s,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -4,8 +4,10 @@ from repro_torch.configs import (  # noqa: F401
     deepseek_v2_236b,
     dilated_vgg,
     granite_moe_1b_a400m,
+    internvl2_2b,
     jamba_1_5_large_398b,
     minitron_8b,
     qwen1_5_0_5b,
     rwkv6_1_6b,
+    seamless_m4t_large_v2,
 )

@@ -3,14 +3,12 @@
 The port's own copy of the dataclasses and the architecture registry of
 ``repro.core.config``: the port imports nothing of the JAX package, so the
 fields it reads are kept here with the same names and defaults, and so are
-the optimizer and training configs.  The sub-config
-of a family the port does not run yet (the modality frontend) stays an
-``Optional`` field that holds ``None`` in every registered config.
+the optimizer and training configs.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -74,6 +72,18 @@ class RWKVConfig:
 
 
 @dataclass(frozen=True)
+class FrontendConfig:
+    """Modality frontend STUB: precomputed embeddings fed to the backbone.
+
+    ``input_specs`` produces ``(batch, num_prefix, d_model)`` embeddings; no
+    vision/audio tower is instantiated (backbone only).
+    """
+
+    kind: str = "none"              # "none" | "patch" (vlm) | "frames" (audio)
+    num_prefix: int = 0             # prefix embeddings per example
+
+
+@dataclass(frozen=True)
 class ConvLayerConfig:
     name: str
     kind: str                       # "conv" | "pool" | "dense" | "upsample"
@@ -105,9 +115,7 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     rwkv: Optional[RWKVConfig] = None
-    # the modality frontend (VLM, audio) is not ported yet: None in every
-    # registered config
-    frontend: Optional[Any] = None
+    frontend: Optional[FrontendConfig] = None
     convnet: Optional[ConvNetConfig] = None
     attn_every: int = 0
     encoder_layers: int = 0

@@ -20,6 +20,12 @@ admit/step/finish order, its per-slot position vectors and its event log are
 the reference server's, so the virtual scheduler in ``repro.serve_sim``
 stays its model.  The KV cache lives on the device and is written in place.
 
+A VLM (internvl2-2b) is served text-only, as the reference's server serves
+it: requests carry no image.  A prompt behind a modality prefix, and an
+enc-dec's frames, go through the api's ``prefill`` and ``decode_step``
+(``launch/steps.make_prefill_step`` and ``make_serve_step``); ``main``
+refuses the enc-dec families, as the reference's does.
+
 Admission differs by model.  An attention model is prefilled token by token
 through the batch's decode step, as in the reference: the other slots decode
 token 0 at their own next position, which is overwritten later.  A model with
@@ -47,7 +53,7 @@ from repro_torch.core.config import get_arch
 from repro_torch.core.device import resolve_device
 from repro_torch.launch import steps as steps_lib
 from repro_torch.models import api
-from repro_torch.models.layers import tree_map
+from repro_torch.models.layers import copy_into_leading, tree_map
 
 
 @dataclass
@@ -200,8 +206,7 @@ def _write_slot(dst: torch.Tensor, src: torch.Tensor, slot: int) -> None:
     A leaf shorter than the slot's (an attention cache of the prompt's L
     positions, (periods, 1, Hkv, L, hd), in a slot of max_len) fills the
     leading part of each axis."""
-    region = tuple(slice(0, n) for n in src.shape[2:])
-    dst[:, slot][(slice(None),) + region].copy_(src[:, 0])
+    copy_into_leading(dst[:, slot], src[:, 0])
 
 
 def _write_cache_into_slot(state, cache, slot: int) -> None:

@@ -6,6 +6,10 @@
         --steps 20 --batch 4 --seq 512                 # on the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
         --smoke --device cpu                           # plain versions, CPU
+    PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-2b \\
+        --smoke --device cpu --steps 2                 # a VLM
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-large-v2 --smoke --device cpu --steps 2
 
 Wires together: config registry -> synthetic data pipeline (prefetching) ->
 train step (loss, ``torch.autograd.grad``, AdamW, in place) -> checkpoint
@@ -13,9 +17,10 @@ manager (async, atomic, auto-resume) -> supervisor heartbeats.  ``--smoke``
 selects the reduced config; a caller of :func:`main` may pass a config of
 its own (a cut of a registered one, such as jamba's ``TRAIN_CARD``).  One
 device: there is no mesh and no activation sharding rules yet (ROADMAP.md,
-Queue 1 item 14).  The decoder-only text families train, the recurrent ones
-(RWKV-6, the Mamba hybrid) included; a VLM prefix and the audio / enc-dec
-batches are not ported (``NotImplementedError``); the convnet, fed images
+Queue 1 item 14).  The decoder-only families train, the recurrent ones
+(RWKV-6, the Mamba hybrid) included, and so does the enc-dec: a VLM batch
+carries random patch embeddings ahead of its tokens, an enc-dec batch
+random frames and half the tokens (:func:`model_batch`); the convnet, fed images
 and not tokens, trains through ``launch/steps.make_train_step`` and is
 refused here (``ValueError``).  On the card the
 attention of a training step runs through the flash-attention kernel and
@@ -40,6 +45,30 @@ from repro_torch.launch import steps as steps_lib
 from repro_torch.models import api
 from repro_torch.optim import adamw
 from repro_torch.runtime.supervisor import Supervisor
+
+
+def model_batch(cfg, batch, gen: torch.Generator):
+    """The batch ``cfg``'s family trains on, from the pipeline's (batch,
+    seq) tokens: a VLM gets patch embeddings of min(num_prefix, seq // 2)
+    positions ahead of all its tokens; an enc-dec frames of seq // 2
+    positions and the first seq // 2 tokens.  The embeddings are normal
+    draws from ``gen``, where the reference's trainer feeds zeros: at full
+    depth zeros make every gradient NaN, in the reference too (a norm of a
+    zero vector has a gradient of 1 / sqrt(eps), compounded over the
+    layers)."""
+    tokens = batch["tokens"]
+    n, seq = tokens.shape
+
+    def embeds(length):
+        return torch.randn((n, length, cfg.d_model), generator=gen,
+                           device=tokens.device)
+
+    if cfg.family == "vlm":
+        return {**batch, "prefix_embeds": embeds(
+            min(cfg.frontend.num_prefix, seq // 2))}
+    if cfg.family in ("audio", "encdec"):
+        return {"frames": embeds(seq // 2), "tokens": tokens[:, :seq // 2]}
+    return batch
 
 
 def main(argv=None, cfg=None):
@@ -78,12 +107,6 @@ def main(argv=None, cfg=None):
                          "which picks another config, is not taken with it")
     cfg = dataclasses.replace(cfg, param_dtype=args.dtype,
                               compute_dtype=args.dtype)
-    if cfg.family == "vlm":
-        raise NotImplementedError("VLM prefixes are not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 12)")
-    if cfg.family in ("audio", "encdec"):
-        raise NotImplementedError("enc-dec training is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 12)")
     if cfg.family == "convnet":
         raise ValueError("train.py feeds tokens, as the reference's does; "
                          "a convnet trains through "
@@ -118,8 +141,9 @@ def main(argv=None, cfg=None):
     try:
         for _ in range(start_step, args.steps):
             step_i, host_batch = next(prefetch)
-            batch = {k: torch.from_numpy(v).to(device)
-                     for k, v in host_batch.items()}
+            batch = model_batch(cfg, {k: torch.from_numpy(v).to(device)
+                                      for k, v in host_batch.items()},
+                                torch.Generator(device).manual_seed(step_i))
             t0 = time.perf_counter()
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])

@@ -9,6 +9,7 @@
   decode_step(params, cfg, state, tokens, pos)-> (logits, state)
   init_decode_state(cfg, batch, max_len)      -> TensorSpec tree
   allocate_decode_state(cfg, batch, max_len, device) -> zeroed cache tree
+  grow_decode_state(cfg, cache, max_len)      -> prefill cache, grown
   input_specs(cfg, shape)                     -> TensorSpec dict (allocates nothing)
   model_flops(cfg, shape)                     -> 6*N*D (or 6*N_active*D)
 """
@@ -21,23 +22,24 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.core.config import ModelConfig, ShapeConfig
 from repro_torch.models import dilated_vgg as DVGG
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import lm as LM
 from repro_torch.models.attention import TensorSpec
 
 
-# the decoder-only families the port runs ("vlm" waits for its prefix)
-_LM_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+_ENCDEC_FAMILIES = ("encdec", "audio")
 
 
 def _mod(cfg: ModelConfig):
     if cfg.family in _LM_FAMILIES:
         return LM
+    if cfg.family in _ENCDEC_FAMILIES:
+        return ED
     if cfg.family == "convnet":
         return DVGG
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported yet; the port runs "
-        f"{_LM_FAMILIES + ('convnet',)} (ROADMAP.md, Queue 1 item 12)")
+    raise ValueError(cfg.family)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig):
@@ -93,22 +95,41 @@ def allocate_decode_state(cfg: ModelConfig, batch: int, max_len: int, device):
     return _mod(cfg).allocate_decode_state(cfg, batch, max_len, device)
 
 
+def grow_decode_state(cfg: ModelConfig, cache, max_len: int):
+    """A prefill cache in a decode state of ``max_len`` positions (an
+    enc-dec's cross cache stays at the frames' length)."""
+    return _mod(cfg).grow_decode_state(cfg, cache, max_len)
+
+
 def input_specs(cfg: ModelConfig, shape: ShapeConfig):
     """Inputs for the step function selected by ``shape.mode``:
     train/prefill -> batch dict; decode -> {tokens, pos, state}."""
     B, S = shape.global_batch, shape.seq_len
     i32 = torch.int32
+    emb_dt = L.dtype_of(cfg.compute_dtype)
+    _mod(cfg)                  # raises for an unknown family
     if cfg.family == "convnet":
         net = cfg.convnet
         h, w = net.in_hw
-        return {"image": TensorSpec((B, h, w, net.in_ch),
-                                    L.dtype_of(cfg.compute_dtype)),
+        return {"image": TensorSpec((B, h, w, net.in_ch), emb_dt),
                 "labels": TensorSpec((B, h, w), i32)}
-    _mod(cfg)                  # raises for a family the port does not run
-    if cfg.frontend is not None and cfg.frontend.kind != "none":
-        raise NotImplementedError("modality prefixes are not ported yet")
+    if cfg.family in _ENCDEC_FAMILIES:
+        s_enc, s_dec = S // 2, S // 2
+        if shape.mode in ("train", "prefill"):
+            return {"frames": TensorSpec((B, s_enc, cfg.d_model), emb_dt),
+                    "tokens": TensorSpec((B, s_dec), i32)}
+        return {"tokens": TensorSpec((B,), i32), "pos": TensorSpec((), i32),
+                "state": init_decode_state(cfg, B, s_dec)}
     if shape.mode in ("train", "prefill"):
-        return {"tokens": TensorSpec((B, S), i32)}
+        batch = {}
+        s_text = S
+        if cfg.frontend is not None and cfg.frontend.kind != "none":
+            npre = min(cfg.frontend.num_prefix, S // 2)
+            s_text = S - npre
+            batch["prefix_embeds"] = TensorSpec((B, npre, cfg.d_model),
+                                                emb_dt)
+        batch["tokens"] = TensorSpec((B, s_text), i32)
+        return batch
     # decode: one new token against a cache of S positions
     return {"tokens": TensorSpec((B,), i32), "pos": TensorSpec((), i32),
             "state": init_decode_state(cfg, B, S)}
@@ -124,7 +145,11 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     if cfg.family == "convnet":
         return float("nan")
     n_active = param_count(cfg, active_only=True)
-    tokens = shape.global_batch * (1 if shape.mode == "decode"
-                                   else shape.seq_len)
+    seq = shape.seq_len
+    if cfg.family in _ENCDEC_FAMILIES:
+        # S/2 encoder frames + S/2 decoder tokens; each stack (about half
+        # of N) sees S/2 tokens, so N * S/2 overall
+        seq = seq // 2
+    tokens = shape.global_batch * (1 if shape.mode == "decode" else seq)
     per_token = 6 * n_active if shape.mode == "train" else 2 * n_active
     return float(per_token) * float(tokens)

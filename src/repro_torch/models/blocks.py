@@ -150,32 +150,33 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def init_stack(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """The prefix blocks, then the periods, drawn one at a time into
-    tensors stacked on the period axis (allocated once, filled in place; a
-    single period is a view), so init never holds a second copy of the
-    weights."""
+    """The prefix blocks, then the periods stacked on the period axis
+    (:func:`init_stacked`)."""
     prefix, period, n_periods = _ported_pattern(cfg)
     params: Params = {}
     if prefix:
         params["prefix"] = {f"blk{i}": init_block(gen, cfg, m, f)
                             for i, (m, f) in enumerate(prefix)}
-
-    def init_period():
-        return {f"sub{j}": init_block(gen, cfg, m, f)
-                for j, (m, f) in enumerate(period)}
-
-    periods = (init_period() for _ in range(n_periods))
-    if n_periods == 1:
-        params["periods"] = L.tree_map(lambda t: t[None], next(periods))
-        return params
-    stacked = None
-    for i, one in enumerate(periods):
-        if stacked is None:
-            stacked = L.tree_map(
-                lambda t: t.new_empty((n_periods,) + t.shape), one)
-        L.tree_map(lambda dst, src: dst[i].copy_(src), stacked, one)
-    params["periods"] = stacked
+    params["periods"] = init_stacked(n_periods, lambda: {
+        f"sub{j}": init_block(gen, cfg, m, f)
+        for j, (m, f) in enumerate(period)})
     return params
+
+
+def init_stacked(n: int, draw) -> Params:
+    """``n`` trees from ``draw()`` stacked on a leading axis (the twin of
+    the reference's ``jax.vmap`` over keys): tensors allocated at the first
+    draw and filled one draw at a time, so init never holds a second copy
+    of the weights; a single draw is a view."""
+    draws = (draw() for _ in range(n))
+    if n == 1:
+        return L.tree_map(lambda t: t[None], next(draws))
+    stacked = None
+    for i, one in enumerate(draws):
+        if stacked is None:
+            stacked = L.tree_map(lambda t: t.new_empty((n,) + t.shape), one)
+        L.tree_map(lambda dst, src: dst[i].copy_(src), stacked, one)
+    return stacked
 
 
 def stack_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> Params:
@@ -220,6 +221,17 @@ def _remat_wrap(fn, remat: str):
     raise ValueError(f"remat must be 'none', 'dots' or 'full'; got {remat!r}")
 
 
+def unstack(stacked: Params) -> List[Params]:
+    """The trees along the leading (layer or period) axis of a stacked
+    tree, as views.  Each leaf is unbound once: the backward of unbind
+    stacks the layers' gradients in one op, where indexing each layer
+    (t[i]) would give every layer a zero-filled gradient of the whole stack
+    and add them up (quadratic in depth)."""
+    unbound = L.tree_map(lambda t: t.unbind(0), stacked)
+    n = len(next(L.leaves(unbound)))
+    return [L.tree_map(lambda views: views[i], unbound) for i in range(n)]
+
+
 def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
                 mode: str, cache: Optional[Params] = None, pos=None,
                 causal: bool = True, remat: str = "none",
@@ -232,7 +244,7 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     MoE.  ``remat`` checkpoints each period in train mode (see
     :func:`_remat_wrap`; the prefix blocks run without, as in the
     reference); other modes ignore it."""
-    prefix, period, n_periods = _ported_pattern(cfg)
+    prefix, period, _ = _ported_pattern(cfg)
     total_aux = 0.0
     per_period = []
     prefix_cache: Params = {}
@@ -258,13 +270,7 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
         return x, caches_out, aux_sum
 
     body = _remat_wrap(period_fn, remat if mode == "train" else "none")
-    # one view per period of each stacked leaf, taken at once: the backward
-    # of unbind stacks the periods' gradients in one op, where indexing each
-    # period (t[i]) would give every period a zero-filled gradient of the
-    # whole stack and add them up (quadratic in depth)
-    unbound = L.tree_map(lambda t: t.unbind(0), params["periods"])
-    for i in range(n_periods):
-        p_params = L.tree_map(lambda views: views[i], unbound)
+    for i, p_params in enumerate(unstack(params["periods"])):
         p_cache = None if cache is None else \
             L.tree_map(lambda t: t[i], cache["periods"])
         x, caches_out, aux = body(x, p_params, p_cache)

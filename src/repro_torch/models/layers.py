@@ -24,6 +24,21 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
+def leaves(tree):
+    """The leaves of nested dicts, in key order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def copy_into_leading(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst``'s leading part of ``src``'s shape = ``src``, in place (a cache
+    of S positions into one of more)."""
+    dst[tuple(slice(0, n) for n in src.shape)].copy_(src)
+
+
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32,
             "float16": torch.float16}[name]

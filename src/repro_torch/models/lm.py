@@ -2,7 +2,8 @@
 
 Public surface (used by repro_torch.models.api):
   init_params, forward, hidden_states, chunked_xent, loss_fn,
-  init_decode_state, allocate_decode_state, prefill, decode_step
+  init_decode_state, allocate_decode_state, grow_decode_state, prefill,
+  decode_step
 """
 from __future__ import annotations
 
@@ -42,11 +43,16 @@ def _head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _embed_inputs(p: Params, cfg: ModelConfig,
                   batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Text tokens only; the VLM prefix comes with its slice (ROADMAP.md,
-    Queue 1 item 12)."""
-    if cfg.frontend is not None and cfg.frontend.kind != "none":
-        raise NotImplementedError("modality prefixes are not ported yet")
-    return L.embed(p["embed"], batch["tokens"], L.dtype_of(cfg.compute_dtype))
+    """The token embeddings, behind the batch's ``prefix_embeds`` (B, P, D)
+    (the modality frontend's stub: precomputed patch embeddings, cast to the
+    compute dtype) when the config has a frontend and the batch carries
+    them; a text-only batch stays text-only."""
+    cd = L.dtype_of(cfg.compute_dtype)
+    x = L.embed(p["embed"], batch["tokens"], cd)
+    if cfg.frontend is not None and cfg.frontend.kind != "none" \
+            and "prefix_embeds" in batch:
+        x = torch.cat([batch["prefix_embeds"].to(cd), x], dim=1)
+    return x
 
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
@@ -99,10 +105,11 @@ def chunked_xent(p: Params, cfg: ModelConfig, h: torch.Tensor,
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
             remat: str = "dots") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross-entropy (+ MoE aux); the chunked head and
-    cross-entropy keep the (B, S, V) logits out of memory.  Returns (total,
-    {"loss", "aux", "total"})."""
+    """Next-token cross-entropy over the text positions (+ MoE aux); the
+    chunked head and cross-entropy keep the (B, S, V) logits out of memory.
+    Returns (total, {"loss", "aux", "total"})."""
     h, aux = hidden_states(p, cfg, batch, remat=remat)
+    h = h[:, h.shape[1] - batch["tokens"].shape[1]:]    # drop the prefix
     targets = batch["tokens"][:, 1:]
     mask = batch.get("loss_mask")
     loss = chunked_xent(p, cfg, h[:, :-1], targets,
@@ -129,11 +136,25 @@ def allocate_decode_state(cfg: ModelConfig, batch: int, max_len: int,
         lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device), spec)
 
 
+def grow_decode_state(cfg: ModelConfig, cache: Params, max_len: int
+                      ) -> Params:
+    """A decode state of ``max_len`` positions holding the prefill ``cache``
+    in its leading positions; a recurrent leaf is copied whole.  The
+    reference has no such step: its prefill cache is decoded in place, and
+    a write past its end is clamped to the last position."""
+    leaf = next(L.leaves(cache["periods"]))          # (periods, B, ...)
+    state = allocate_decode_state(cfg, leaf.shape[1], max_len, leaf.device)
+    L.tree_map(L.copy_into_leading, state, cache)
+    return state
+
+
 def prefill(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Params]:
-    """Process the full prompt; returns (last-position logits (B, 1, V),
-    cache): attention caches hold exactly the prompt's S positions, Mamba
-    and RWKV caches the recurrent state after the prompt's last token."""
+    """Process the full prompt (a modality prefix included); returns
+    (last-position logits (B, 1, V), cache): attention caches hold exactly
+    the prompt's S positions, Mamba and RWKV caches the recurrent state
+    after the prompt's last token (:func:`grow_decode_state` moves the
+    cache into one of more positions)."""
     x = _embed_inputs(p, cfg, batch)
     x, cache, _ = B.apply_stack(p["stack"], x, cfg, mode="prefill")
     x = L.apply_norm(p["final_norm"], x, cfg.norm_eps)

@@ -412,11 +412,15 @@ def test_token_trainer_refuses_the_convnet():
 
 
 def test_input_specs_refuse_what_the_port_does_not_run():
-    """enc-dec, and a decoder with a modality prefix (the reference gives
-    it ``prefix_embeds``, which the port's LM does not take yet)."""
+    """A family neither package knows (ValueError, as the reference's
+    dispatch raises); the enc-dec and a decoder with a modality prefix get
+    their specs now (the frames, the prefix's ``prefix_embeds``)."""
     cfg = tconfig.get_arch("qwen1.5-0.5b").smoke
+    cell = tconfig.LM_SHAPES["train_4k"]
+    with pytest.raises(ValueError, match="speech"):
+        tapi.input_specs(dataclasses.replace(cfg, family="speech"), cell)
     vlm = dataclasses.replace(cfg, frontend=types.SimpleNamespace(
         kind="patch", num_prefix=4))
-    for bad in (dataclasses.replace(cfg, family="encdec"), vlm):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tapi.input_specs(bad, tconfig.LM_SHAPES["train_4k"])
+    assert sorted(tapi.input_specs(vlm, cell)) == ["prefix_embeds", "tokens"]
+    assert sorted(tapi.input_specs(dataclasses.replace(cfg, family="encdec"),
+                                   cell)) == ["frames", "tokens"]

@@ -31,7 +31,9 @@ def test_port_files_exist():
                  "configs/granite_moe_1b_a400m.py", "kernels/ssm_scan/ops.py",
                  "optim/adamw.py", "launch/train.py", "data/pipeline.py",
                  "runtime/supervisor.py", "checkpoint/manager.py",
-                 "models/dilated_vgg.py", "configs/dilated_vgg.py"):
+                 "models/dilated_vgg.py", "configs/dilated_vgg.py",
+                 "models/encdec.py", "configs/internvl2_2b.py",
+                 "configs/seamless_m4t_large_v2.py"):
         assert f"src/repro_torch/{twin}" in names
     assert "chip_smoke.py" in names
 

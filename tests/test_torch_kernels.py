@@ -53,6 +53,7 @@ DECODE_CASES = [
     (2, 6, 2, 40, 16, 17),       # group 3
     (1, 10, 2, 48, 16, 30),      # group 5 (qwen2.5-14b's 40/8)
     (1, 12, 1, 32, 16, 32),      # group 12 (mistral-large-123b's 96/8)
+    (2, 4, 4, 24, 16, 24),       # every kv_len = S: enc-dec cross decode
 ]
 
 

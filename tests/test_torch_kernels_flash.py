@@ -20,6 +20,8 @@ FLASH_CASES = [
     (2, 4, 1, 24, 56, 16, False, 0),     # non-causal, Sq != Sk, GQA
     (1, 2, 2, 20, 52, 16, True, 32),     # causal with q_offset
     (1, 4, 2, 70, 70, 128, True, 0),     # hd 128, GQA, Sq past a 64-row tile
+    (2, 4, 4, 6, 12, 16, False, 0),      # enc-dec cross-attention, Sq < Sk
+    (2, 4, 4, 12, 12, 16, False, 0),     # enc-dec encoder, Sq = Sk
 ]
 
 

@@ -24,10 +24,12 @@ from repro_torch.models import attention as tatt
 ARCHS = ["qwen1.5-0.5b", "minitron-8b"]
 # every arch the port registers (rwkv6's parity tests: test_torch_rwkv6.py;
 # jamba's: test_torch_jamba.py; granite-moe's: test_torch_moe.py;
-# dilated-vgg's: test_torch_dilated_vgg.py; deepseek-v2's: test_torch_mla.py)
+# dilated-vgg's: test_torch_dilated_vgg.py; deepseek-v2's: test_torch_mla.py;
+# internvl2's: test_torch_vlm.py; seamless-m4t's: test_torch_encdec.py)
 PORTED_ARCHS = ARCHS + ["rwkv6-1.6b", "jamba-1.5-large-398b",
                         "granite-moe-1b-a400m", "dilated-vgg",
-                        "deepseek-v2-236b"]
+                        "deepseek-v2-236b", "internvl2-2b",
+                        "seamless-m4t-large-v2"]
 ATOL = 1e-4          # the reference's own bound is 2e-3 (test_models.py)
 B, T, MAX_LEN = 2, 12, 16
 
@@ -79,7 +81,7 @@ def test_configs_are_copies():
             (t.shapes, t.skip_shapes, t.source)
     assert tconfig.list_archs() == sorted(PORTED_ARCHS)
     with pytest.raises(KeyError, match="available"):
-        tconfig.get_arch("internvl2-2b")
+        tconfig.get_arch("qwen2.5-14b")
 
 
 def test_params_convert_key_for_key(pair):

@@ -58,17 +58,18 @@ def test_prefill_matches_forward(model):
 
 
 def test_unported_families_raise():
-    """What the port does not run yet raises, pointing at ROADMAP.md:
-    enc-dec, audio, and a VLM (its family, and a modality frontend on a
-    decoder).  MLA and the dense prefix blocks of an MoE stack run now
-    (test_torch_mla.py)."""
+    """Every family of the reference runs in the port now (the VLM prefix:
+    test_torch_vlm.py; the enc-dec: test_torch_encdec.py); a family it does
+    not know raises ValueError, as the reference's dispatch does.  A
+    modality frontend on a decoder takes a batch without a prefix as a
+    text-only batch."""
     cfg = Model("qwen1.5-0.5b").cfg
-    for bad in (dataclasses.replace(cfg, family=f)
-                for f in ("encdec", "audio", "vlm")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tapi.init_params(torch.Generator(), bad)
+    with pytest.raises(ValueError, match="speech"):
+        tapi.init_params(torch.Generator(),
+                         dataclasses.replace(cfg, family="speech"))
     params = tapi.init_params(torch.Generator().manual_seed(0), cfg)
     vlm = dataclasses.replace(cfg, frontend=types.SimpleNamespace(
         kind="patch", num_prefix=4))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tapi.forward(params, vlm, {"tokens": torch.zeros(1, 3, dtype=torch.long)})
+    tokens = {"tokens": torch.zeros(1, 3, dtype=torch.long)}
+    torch.testing.assert_close(tapi.forward(params, vlm, tokens)[0],
+                               tapi.forward(params, cfg, tokens)[0])

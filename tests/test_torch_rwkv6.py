@@ -262,14 +262,17 @@ def test_params_convert_key_for_key_keeping_dtypes(param_dtype):
 
 
 def test_other_families_still_raise():
-    """Mamba, MoE, MLA with its dense prefix blocks and the convnet run now;
-    what still raises: enc-dec and audio, and a VLM frontend."""
+    """Mamba, MoE, MLA with its dense prefix blocks, the convnet, the VLM
+    and the enc-dec run now; what still raises: a family the reference does
+    not know either (ValueError, as its dispatch raises)."""
     gen = torch.Generator().manual_seed(0)
     cfg = _f32(tconfig.get_arch("qwen1.5-0.5b").smoke)
-    unported = tuple(dataclasses.replace(cfg, family=f)
-                     for f in ("encdec", "audio", "vlm"))
-    for bad in unported:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tapi.init_params(gen, bad)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tapi.init_decode_state(unported[0], 1, 4)
+    bad = dataclasses.replace(cfg, family="retrieval")
+    with pytest.raises(ValueError, match="retrieval"):
+        tapi.init_params(gen, bad)
+    with pytest.raises(ValueError, match="retrieval"):
+        tapi.init_decode_state(bad, 1, 4)
+    for family in ("encdec", "audio"):
+        state = tapi.init_decode_state(
+            dataclasses.replace(cfg, family=family), 1, 4)
+        assert sorted(state) == ["cross_k", "cross_v", "self"]

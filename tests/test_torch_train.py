@@ -264,7 +264,8 @@ def test_decay_mask_matches_jax(arch):
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "minitron-8b",
                                   "rwkv6-1.6b", "jamba-1.5-large-398b",
-                                  "granite-moe-1b-a400m"])
+                                  "granite-moe-1b-a400m", "internvl2-2b",
+                                  "seamless-m4t-large-v2"])
 def test_param_count_matches_jax(arch):
     j, t = jax_get_arch(arch), tconfig.get_arch(arch)
     for jc, tc in ((j.smoke, t.smoke), (j.model, t.model)):
