@@ -150,11 +150,6 @@ KERNEL_SOURCE = {
     for src in (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu")
     for name in re.findall(r"^(\w+_kernel)\(", src.read_text(), re.M)}
 PORT_KERNELS = set(KERNEL_SOURCE)
-# H100 SXM data sheet peaks (dense), used for each kernel's bound, by the
-# arithmetic the kernel runs: f32 FMA on the CUDA cores, bf16 on the tensor
-# cores, and f32 as three TF32 products on the tensor cores (495 / 3)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 # tests/test_kernels.py's tolerances
 TOL = {"float32": dict(atol=3e-5, rtol=0.0),
        "bfloat16": dict(atol=3e-2, rtol=1e-2)}
@@ -410,10 +405,9 @@ def decode_case(torch, F, dops, B, Hq, Hkv, S, hd, kv_len, dtype, gen):
         return F.scaled_dot_product_attention(qs, k, v, attn_mask=mask,
                                               enable_gqa=Hq != Hkv)
 
-    elem = q.element_size()
-    valid = sum(kv_len)
-    nbytes = (2 * valid * Hkv * hd + 2 * B * Hq * hd) * elem + 4 * B
-    flops = 4.0 * valid * Hq * hd
+    # the kernel's cost formula at the keys kv_len covers
+    flops, nbytes = dops.cost(q, k, v, lens,
+                              keys=sum(min(max(n, 0), S) for n in kv_len))
     return dict(
         shape=f"B={B} Hq={Hq} Hkv={Hkv} S={S} hd={hd} kv_len={kv_len}",
         dtype=dtype, max_abs_err=err,
@@ -465,13 +459,9 @@ def flash_case(torch, F, fops, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                               enable_gqa=Hq != Hkv)
 
-    if causal:   # visible (query, key) pairs
-        pairs = sum(min(Sk, max(0, q_offset + i + 1)) for i in range(Sq))
-    else:
-        pairs = Sq * Sk
-    elem = q.element_size()
-    nbytes = (B * Hq * Sq + B * Hkv * Sk) * (hd + hd_v) * elem
-    flops = 2.0 * B * Hq * pairs * (hd + hd_v)
+    # the kernel's cost formula at the visible (query, key) pairs
+    flops, nbytes = fops.cost(q, k, v, pairs=visible_pairs(Sq, Sk, causal,
+                                                            q_offset))
     row = dict(
         shape=(f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} hd={hd} "
                + (f"hd_v={hd_v} " if hd_v != hd else "")
@@ -533,10 +523,9 @@ def mla_case(torch, F, mops, B, H, L, R, T, kv_len, dtype, gen):
         return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                               scale=scale)
 
-    elem = q_abs.element_size()
-    valid = sum(min(n, T) for n in kv_len)
-    nbytes = (valid * (L + R) + B * H * (2 * L + R)) * elem + 4 * B
-    flops = 2.0 * H * valid * (2 * L + R)
+    # the kernel's cost formula at the keys kv_len covers
+    flops, nbytes = mops.cost(*args[:5],
+                              keys=sum(min(max(n, 0), T) for n in kv_len))
     big = B * T >= 4 * 32768
     # the bound takes the card's peak for the inputs' type (bf16 on the
     # tensor cores); a route that multiplies on the CUDA cores in f32 has
@@ -621,16 +610,12 @@ def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
         extra["launch_us"] = launch_us(torch, lambda: bops.flash_attention_bwd(
             q, k, v, out, lse, do, **kw))
 
-    if causal:   # visible (query, key) pairs
-        pairs = sum(min(Sk, max(0, q_offset + i + 1)) for i in range(Sq))
-    else:
-        pairs = Sq * Sk
-    elem = q.element_size()
-    # read q, k, v, o, do and lse; write dq, dk, dv.  Five products: S and dP
-    # recomputed, dV, dQ, dK
-    nbytes = (4 * B * Hq * Sq * hd + 4 * B * Hkv * Sk * hd) * elem \
-        + 4 * B * Hq * Sq
-    flops = 10.0 * B * Hq * pairs * hd
+    # the kernel's cost formula at the visible (query, key) pairs: seven
+    # products (S and dP in both passes, dV, dK, dQ); the gradient needs five
+    # (S and dP once), the bound's count
+    design = bops.cost(q, k, v, out, lse, do,
+                       pairs=visible_pairs(Sq, Sk, causal, q_offset))
+    flops, nbytes = design[0] * 5 // 7, design[1]
     rate = "float32" if route == "cuda_cores" else \
         "tf32x3" if dtype == "float32" else "bfloat16"
     return dict(
@@ -642,7 +627,7 @@ def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
                    lambda: bops.flash_attention_bwd(q, k, v, out, lse, do, **kw),
                    lambda: fops.ref.attention_bwd_ref(q, k, v, out, lse, do,
                                                       **kw), library),
-        **_bound(nbytes, flops, rate))
+        **_bound(nbytes, flops, rate, design))
 
 
 def _wkv_f64(torch, r, k, v, logw, u, state0):
@@ -693,11 +678,11 @@ def rwkv_case(torch, kops, N, S, hd, dtype, gen, logw_value=None, f64=False,
     if profile:
         extra["launch_us"] = launch_us(
             torch, lambda: kops.rwkv6_scan(*args))
-    # r, k, v read once in their dtype, logw once in f32, y written once in
-    # f32, the state read and written once, u read once
-    nbytes = ((3 * r.element_size() + 4) * N * S * hd + 4 * N * S * hd
-              + 8 * N * hd * hd + 4 * N * hd)
-    flops = 4.0 * N * S * hd * hd      # read-out + update, one FMA each
+    # the kernel's cost formula (chunked products; inputs, out and state);
+    # the function needs the sequential form's read-out and update, one FMA
+    # each per state element and step, the bound's count
+    design = kops.cost(*args, (out, state))
+    flops, nbytes = 4 * N * S * hd * hd, design[1]
     shape = f"N={N} S={S} hd={hd}" \
         + (f" logw={logw_value:g}" if logw_value is not None else "") \
         + (" (vs f64)" if f64 else "")
@@ -705,7 +690,7 @@ def rwkv_case(torch, kops, N, S, hd, dtype, gen, logw_value=None, f64=False,
         shape=shape, dtype=dtype, max_abs_err=err, **extra,
         **_timings(torch, lambda: kops.rwkv6_scan(*args),
                    lambda: kops.rwkv6_scan_ref(*args), None, plain_reps=(5, 2)),
-        **_bound(nbytes, flops, "float32"))
+        **_bound(nbytes, flops, "float32", design))
 
 
 def ssm_case(torch, sops, Bz, S, di, ds, dtype, gen, h0_random=True,
@@ -744,14 +729,8 @@ def ssm_case(torch, sops, Bz, S, di, ds, dtype, gen, h0_random=True,
               "ssm_scan with h_out=h0 differs from the out-of-place call")
         kernel = functools.partial(sops.ssm_scan, *args[:6], state, h_out=state)
     extra = {"launch_us": launch_us(torch, kernel)} if profile else {}
-    n = Bz * S * di
-    # u once in its dtype, dt once in f32, y written once in f32; B, C once;
-    # A_log and D once; the state read and written once
-    nbytes = ((u.element_size() + 8) * n + 2 * B.element_size() * Bz * S * ds
-              + 4 * di * (ds + 1) + 8 * Bz * di * ds)
-    # per state element and step: dt * a, exp, the update (2), dbu * B, the
-    # read-out (2); per channel and step: dt * u, u * D + y (2)
-    flops = 7.0 * n * ds + 3.0 * n
+    # the kernel's cost formula (its products; inputs, y and h)
+    flops, nbytes = sops.cost(*args, y, h)
     return dict(
         shape=f"Bz={Bz} S={S} di={di} ds={ds} h0={'random' if h0_random else 0}"
         + (" h_out=h0" if in_place else ""),
@@ -834,16 +813,14 @@ def rwkv_bwd_case(torch, kops, kbops, N, S, hd, dtype, gen, logw_value=None,
     err, err_auto = _bwd_checks(torch, got, want, auto, path, kernel(), dtypes)
     if profile:
         extra["launch_us"] = launch_us(torch, kernel)
-    elem = r.element_size()
-    nc, hdp = kops.num_chunks(S), kops.padded_head_dim(hd)
-    # read r, k, v (their dtype), logw and dout (f32) once, the forward's
-    # entering states, u and dstate; write dr, dk, dv (r's dtype), dlogw, du
-    # and dstate0 (f32) once
-    nbytes = ((6 * elem + 12) * N * S * hd + 4 * N * nc * hdp * hdp
-              + 8 * N * hd + 8 * N * hd * hd)
-    # the sequential form: per (row, step) S_{t-1} recomputed, G updated,
-    # S_{t-1} dy, G v, k G and G o S_{t-1}: six FMAs per state element
-    flops = 12.0 * N * S * hd * hd
+    # the kernel's cost formula (chunked products; the forward's entering
+    # states read besides the inputs, the gradients written).  The function
+    # reads state0, not the chunks' states, and needs the sequential form's
+    # six FMAs per state element and step (S_{t-1} recomputed, G updated,
+    # S_{t-1} dy, G v, k G, G o S_{t-1}): the bound's count
+    design = kbops.cost((r, k, v, logw, u, dout, states, dstate), got)
+    flops = 12 * N * S * hd * hd
+    nbytes = design[1] - 4 * states.numel() + 4 * N * hd * hd
     shape = f"N={N} S={S} hd={hd}" \
         + (f" logw={logw_value:g}" if logw_value is not None else "") \
         + (" (vs f64)" if f64 else "")
@@ -853,7 +830,7 @@ def rwkv_bwd_case(torch, kops, kbops, N, S, hd, dtype, gen, logw_value=None,
         **_timings(torch, kernel,
                    lambda: kbops.ref.rwkv6_scan_bwd_ref(*args, dout, dstate),
                    None, plain_reps=(3, 1)),
-        **_bound(nbytes, flops, "float32"))
+        **_bound(nbytes, flops, "float32", design))
 
 
 def ssm_bwd_case(torch, sops, sbops, Bz, S, di, ds, dtype, gen,
@@ -893,32 +870,56 @@ def ssm_bwd_case(torch, sops, sbops, Bz, S, di, ds, dtype, gen,
     dtypes = (dt_, f32, f32, dt_, dt_, f32, f32)
     err, err_auto = _bwd_checks(torch, got, want, auto, path, kernel(), dtypes)
     extra = {"launch_us": launch_us(torch, kernel)} if profile else {}
-    n, elem = Bz * S * di, u.element_size()
-    # what the gradient function reads and writes, once each: u, dt, dy read
-    # and du, ddt written per (row, step, channel); B, C, A_log, D, h0 and dh
-    # read and dB, dC, dA_log, dD and dh0 written.  The checkpoints are the
-    # design's own traffic, not the function's, and are reported apart.
-    nbytes = ((2 * elem + 12) * n + 4 * elem * Bz * S * ds
-              + 8 * di * (ds + 1) + 12 * Bz * di * ds)
+    # the kernel's cost formula (its products; the inputs it reads, the
+    # checkpoints among them, and the gradients it writes).  The function
+    # reads h0, not the checkpoints, which are the design's own traffic and
+    # are reported apart: the bound's count
     ckpt_bytes = 4 * math.prod(sbops.checkpoint_shape(Bz, S, di, ds))
-    # per (row, step, channel, state) of the reverse recurrence: g += dy C,
-    # da, g da h_{t-1}, its dot with a and with B, dA, dB's and dC's terms,
-    # da g (15); per channel: du, ddt, dD (8)
-    flops = 15.0 * n * ds + 8.0 * n
+    design = sbops.cost((u, dt, A, B, C, D, ckpt, dy, dh), got, ds)
+    flops, nbytes = design[0], design[1] - ckpt_bytes + 4 * h0.numel()
     return dict(
         shape=f"Bz={Bz} S={S} di={di} ds={ds}", dtype=dtype, max_abs_err=err,
         err_vs_autograd=err_auto, checkpoint_mb=ckpt_bytes / 1e6, **extra,
         **_timings(torch, kernel,
                    lambda: sbops.ref.ssm_scan_bwd_ref(*args, dy, dh), None,
                    plain_reps=(3, 1)),
-        **_bound(nbytes, flops, "float32"))
+        **_bound(nbytes, flops, "float32", design))
 
 
-def _bound(nbytes: float, flops: float, dtype: str) -> dict:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+def visible_pairs(Sq: int, Sk: int, causal: bool, q_offset: int) -> int:
+    """(query, key) pairs a causal mask leaves visible, or all of them."""
+    if not causal:
+        return Sq * Sk
+    return sum(min(Sk, max(0, q_offset + i + 1)) for i in range(Sq))
+
+
+def card_rates() -> tuple:
+    """(HBM bytes/s, {arithmetic: FLOP/s}) of the card, from
+    ``repro_torch.core.hw.h100_sxm``: f32 FMA on the CUDA cores, bf16 on the
+    tensor cores, and f32 as three TF32 products on the tensor cores."""
+    from repro_torch.core.hw import h100_sxm
+    chip = h100_sxm().chip
+    return chip.memory.bandwidth, {
+        "float32": chip.compute.flops_for("float32"),
+        "bfloat16": chip.compute.flops_for("bfloat16"),
+        "tf32x3": chip.compute.flops_for("tensorfloat32") / 3}
+
+
+def _bound(nbytes: float, flops: float, dtype: str, design=None) -> dict:
+    """The least time of the function's own work, ``nbytes`` moved and
+    ``flops`` at the rate of ``dtype``.  ``design``: the kernel wrapper's
+    ``cost`` (FLOPs, bytes), the dry run's count, where the kernel's form
+    does more than the function needs; its bound stands beside as
+    ``design_bound_ms``."""
+    hbm, peak = card_rates()
+    t_bytes = nbytes / hbm * 1e3
+    t_ops = flops / peak[dtype] * 1e3
+    row = dict(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if design is not None:
+        row["design_bound_ms"] = max(design[1] / hbm, design[0] / peak[dtype]) \
+            * 1e3
+    return row
 
 
 def _print_row(name, row):
@@ -939,7 +940,7 @@ def _print_row(name, row):
              f"{row['cuda_cores_err']:.2e} " if "cuda_cores_ms" in row else "")
           + (f"err_vs_plain={row['err_vs_plain']:.2e} "
              if "err_vs_plain" in row else "")
-          + (f"checkpoint_mb={row['checkpoint_mb']:.1f} (not in the bound) "
+          + (f"checkpoint_mb={row['checkpoint_mb']:.1f} (not in bound_ms) "
              if "checkpoint_mb" in row else "")
           + (f"plain_err={row['plain_err']:.2e} " if "plain_err" in row
              else "")
@@ -950,6 +951,8 @@ def _print_row(name, row):
              f"{row['plain_vs_f32']:.2e}) " if "rel_rms" in row else "")
           + (f"bound_cuda_cores_ms={row['bound_cuda_cores_ms']:.5f} "
              if "bound_cuda_cores_ms" in row else "")
+          + (f"design_bound_ms={row['design_bound_ms']:.5f} "
+             if "design_bound_ms" in row else "")
           + f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})", flush=True)
 
 
@@ -1015,6 +1018,140 @@ def phase_serve(torch, np, cfg, params, device, kernels, serve, slots=4,
     return dict(launches=launches, tok_s=toks / wall, wall_s=wall,
                 steps=steps_run, decode_calls=decode_calls,
                 ttft_s=[r.ttft for r in queue], tpot_s=[r.tpot for r in queue])
+
+
+# ---------------------------------------------------------------------------
+# 13. the count against the card
+# ---------------------------------------------------------------------------
+
+# The dry run's temp bytes (its peak less the step's arguments) are held to
+# the allocator's own peak of requested bytes over the same step on the card
+# (``requested_bytes``: the sizes asked for, before the caching allocator
+# rounds a block up or hands out a cached block whole).  The two differ only
+# by what the kernels allocate after their meta route returns: their split
+# scratch, sized by the SM count, which a dry run cannot read.  One call's
+# scratch is freed before the next call, so the allowance of a cell is the
+# largest scratch one call of its kernels allocates (each wrapper's
+# ``scratch_bytes`` at the cell's shapes; 0 where no kernel splits), plus
+# one allocator block, ``SCALAR_SLACK``, for 0-d tensors whose lifetime
+# differs by device: the autograd engine runs a CUDA backward on a thread
+# of its own (qwen's train step peaked 4 bytes higher on the card than on
+# meta, and equal to the card's own count).  The growth of
+# max_memory_allocated, which holds the allocator's rounding, is printed
+# beside and must not be below the requested peak.
+SCALAR_SLACK = 512
+
+
+def meta_like(torch, tree):
+    """``tree`` with every tensor replaced by an empty ``meta`` tensor of its
+    shape, strides and dtype (the dry run's arguments)."""
+    if isinstance(tree, dict):
+        return {k: meta_like(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(meta_like(torch, v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return torch.empty_strided(tree.shape, tree.stride(),
+                                   dtype=tree.dtype, device="meta")
+    return tree
+
+
+def phase_cost_cell(torch, name, cfg, shape, step, args, kernels, want,
+                    scratch=0, reps=5):
+    """One cell of phase 13.  ``step(*args)`` on the card is counted by
+    ``core.cost.analysis`` on ``meta`` copies of ``args`` (the dry run) and
+    on ``args`` themselves (kernels launched); the two counts must agree to
+    the integer, each kernel must launch as often as it was counted (each
+    of ``want`` at least once), and the roofline bound at the H100's rates
+    (``launch/perf.roofline``) must not exceed the step's device time
+    (CUDA events, median of ``reps`` runs after one warm-up).  The dry
+    run's temp bytes must lie within ``scratch`` (+ ``SCALAR_SLACK``)
+    bytes under the growth of the allocator's requested bytes over one more
+    run (see above)."""
+    from repro_torch.core.cost.analysis import analyze_step, top_contributors
+    from repro_torch.launch.perf import roofline, useful_flops
+
+    t0 = time.perf_counter()
+    dry = analyze_step(step, *meta_like(torch, args))
+    step(*args)                                   # warm-up, no counter
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    card = analyze_step(step, *args)
+    torch.cuda.synchronize()
+    launched = launches_of(kernels)
+    times = []
+    for _ in range(reps):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        step(*args)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    measured = sorted(times)[len(times) // 2]
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()
+    torch.cuda.reset_peak_memory_stats()
+    result = step(*args)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_stats()
+    del result
+    growth = after["allocated_bytes.all.peak"] \
+        - before["allocated_bytes.all.current"]
+    requested = after["requested_bytes.all.peak"] \
+        - before["requested_bytes.all.current"]
+    rl = roofline(dry, cfg, useful_flops(cfg, shape))
+    top = top_contributors(dry, 5, "bytes")
+    counted = {k: dry["by_op"].get(k, {}).get("count", 0) for k in kernels}
+    row = dict(cell=name, flops=dry["flops"], hbm_bytes=dry["hbm_bytes"],
+               card_flops=card["flops"], card_hbm_bytes=card["hbm_bytes"],
+               measured_ms=measured, times_ms=times,
+               ratio=measured / rl["bound_ms"],
+               peak_bytes=dry["peak_bytes"], temp_bytes=dry["temp_bytes"],
+               argument_bytes=dry["argument_bytes"], growth_bytes=growth,
+               requested_bytes=requested, scratch_bytes=scratch,
+               card_temp_bytes=card["temp_bytes"],
+               launches=launched, counted=counted,
+               top=[dict(bytes=b, count=n, op=op) for b, n, op in top],
+               trace_s=dry["trace_seconds"], **rl)
+    print(f"  [{name}] count {dry['flops']:,} FLOP, {dry['hbm_bytes']:,} B "
+          f"(card {card['flops']:,}, {card['hbm_bytes']:,}); t_compute "
+          f"{rl['t_compute_ms']:.4f} ms, t_memory {rl['t_memory_ms']:.4f} ms,"
+          f" bound {rl['bound_ms']:.4f} ms ({rl['dominant']}), measured "
+          f"{measured:.4f} ms ({row['ratio']:.2f}x), roofline fraction "
+          f"{rl['roofline_fraction']:.4f}; peak {dry['peak_bytes'] / 1e9:.4f}"
+          f" GB (temp {dry['temp_bytes']:,} B) vs requested growth "
+          f"{requested:,} B (scratch allowance {scratch:,}; counted on the "
+          f"card {card['temp_bytes']:,}), allocated "
+          f"growth {growth:,} B; launches "
+          f"{ {k: n for k, n in launched.items() if n} }", flush=True)
+    for b, n, op in top:
+        print(f"    {b / 1e9:10.4f} GB {n:6d}x {op}")
+    same = (dry["flops"], dry["hbm_bytes"]) == (card["flops"],
+                                                 card["hbm_bytes"])
+    if not same:
+        for op in sorted(set(dry["by_op"]) | set(card["by_op"])):
+            a, b = dry["by_op"].get(op), card["by_op"].get(op)
+            if a != b:
+                print(f"    differs: {op} meta {a} card {b}")
+    check(same, f"{name}: the dry run counts {dry['flops']} FLOP and "
+          f"{dry['hbm_bytes']} B, the card's run {card['flops']} and "
+          f"{card['hbm_bytes']}")
+    check(rl["bound_ms"] <= measured, f"{name}: bound {rl['bound_ms']} ms "
+          f"over the measured {measured} ms: the count is wrong")
+    check(0 <= requested - dry["temp_bytes"] <= scratch + SCALAR_SLACK,
+          f"{name}: dry-run temp bytes {dry['temp_bytes']} against the card's "
+          f"requested growth {requested} (scratch allowance {scratch})")
+    check(growth >= requested, f"{name}: allocated growth {growth} below the "
+          f"requested {requested}")
+    for k in kernels:
+        check(launched[k] == counted[k]
+              == card["by_op"].get(k, {}).get("count", 0),
+              f"{name}: {k} launched {launched[k]} times, counted "
+              f"{counted[k]}")
+    for k in want:
+        check(launched[k] > 0, f"{name}: {k} never launched")
+    row["phase_s"] = time.perf_counter() - t0
+    return row
 
 
 def phase_profile(torch, cfg, params, device, steps, api, slots=4,
@@ -1533,7 +1670,7 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, per_step,
     (ev0, ev1), n_leaves, n_params = opt_span[0]
     span_ms = ev0.elapsed_time(ev1)
     # read p, g, m, v and write p, m, v once each, f32
-    opt_bound = n_params * 4 * 7 / HBM_BYTES_PER_S * 1e3
+    opt_bound = n_params * 4 * 7 / card_rates()[0] * 1e3
     if opt_ms > 0:
         print(f"  AdamW update of {n_leaves} leaves in that step: "
               f"{opt_ms:.2f} ms device kernel time in {opt_launches} "
@@ -1926,6 +2063,12 @@ def phase_dilated_vgg(torch, cfg, device, api, steps, adamw, OptimizerConfig,
             device_ops=ops, idle=1 - dev_ms / fwd_wall,
             top=sorted(((k, v[0], v[1]) for k, v in kern.items()),
                        key=lambda r: -r[1])[:10])
+        print("== 13c. the count against the card: the bf16 forward",
+              flush=True)
+        out["cost"] = phase_cost_cell(
+            torch, f"{cfg.name} forward {H} x {W}", cfg, None,
+            lambda p, b: api.forward(p, cfg, b)[0], (params, batch), kernels,
+            want=())
 
         # ---- (b) bf16 against f32, the same params
         cfg32 = dataclasses.replace(cfg, param_dtype="float32",
@@ -2537,10 +2680,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
 
-    from repro_torch.core.config import OptimizerConfig, get_arch
+    from repro_torch.core.config import OptimizerConfig, ShapeConfig, get_arch
     from repro_torch.core.device import resolve_device
     from repro_torch.data import pipeline
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, sm_count
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import bwd as bops
     from repro_torch.kernels.flash_attention import ops as fops
@@ -2851,6 +2994,44 @@ def main(argv=None) -> int:
     print("== 5. prefill 4 x 256 tokens through flash_attention", flush=True)
     pre = phase_prefill(torch, np, cfg, params, device, kernels,
                         {"flash_attention": cfg.num_layers}, steps, api)
+    print("== 13a. the count against the card: qwen1.5-0.5b f32 decode (4 "
+          "slots, 512 positions), prefill 4 x 256, one train step 4 x 512 "
+          "(remat dots)", flush=True)
+    cost_cells = []
+    sms = sm_count(torch.device(device))
+    att, cd = cfg.attention, getattr(torch, cfg.compute_dtype)
+    state = api.allocate_decode_state(cfg, 4, 512, device)
+    cost_cells.append(phase_cost_cell(
+        torch, "qwen1.5-0.5b decode B 4 S 512", cfg,
+        ShapeConfig("decode", 512, 4, "decode"), steps.make_serve_step(cfg),
+        (params, state, torch.arange(1, 5, dtype=torch.int32, device=device),
+         torch.tensor([300, 200, 100, 50], dtype=torch.int32, device=device)),
+        kernels, want=("decode_attention",),
+        scratch=dops.scratch_bytes(
+            torch.empty(4, att.num_heads, att.head_dim, dtype=cd,
+                        device="meta"),
+            torch.empty(4, att.num_kv_heads, 512, att.head_dim, dtype=cd,
+                        device="meta"), sms)))
+    del state
+    cost_cells.append(phase_cost_cell(
+        torch, "qwen1.5-0.5b prefill 4 x 256", cfg,
+        ShapeConfig("prefill", 256, 4, "prefill"),
+        steps.make_prefill_step(cfg),
+        (params, {"tokens": _prompts(torch, np, cfg, device, 4, 256)}),
+        kernels, want=("flash_attention",)))
+    opt_cfg = OptimizerConfig()
+    cost_cells.append(phase_cost_cell(
+        torch, "qwen1.5-0.5b train 4 x 512 remat dots", cfg,
+        ShapeConfig("train", 512, 4, "train"),
+        steps.make_train_step(cfg, opt_cfg, remat="dots"),
+        (params, adamw.init_opt_state(params, opt_cfg),
+         {"tokens": _prompts(torch, np, cfg, device, 4, 512)}),
+        kernels, want=("flash_attention", "flash_attention_bwd"),
+        scratch=bops.scratch_bytes(
+            torch.empty(4, att.num_heads, 512, att.head_dim, dtype=cd,
+                        device="meta"),
+            torch.empty(4, att.num_kv_heads, 512, att.head_dim, dtype=cd,
+                        device="meta"), sms)))
     del params
     gc.collect()            # the servers' closures hold params in cycles
     torch.cuda.empty_cache()
@@ -2933,6 +3114,14 @@ def main(argv=None) -> int:
     print("== 7a. prefill 2 x 256 tokens through rwkv6_scan", flush=True)
     pre_r = phase_prefill(torch, np, rcfg, rparams, device, kernels,
                           {"rwkv6_scan": rcfg.num_layers}, steps, api, batch=2)
+    print("== 13b. the count against the card: rwkv6-1.6b f32 prefill 4 x "
+          "256", flush=True)
+    cost_cells.append(phase_cost_cell(
+        torch, "rwkv6-1.6b prefill 4 x 256", rcfg,
+        ShapeConfig("prefill", 256, 4, "prefill"),
+        steps.make_prefill_step(rcfg),
+        (rparams, {"tokens": _prompts(torch, np, rcfg, device, 4, 256)}),
+        kernels, want=("rwkv6_scan",)))
     print("== 7b. 2-slot server equals solo at full width", flush=True)
     solo_err = phase_server_solo(torch, np, rcfg, rparams, device, serve)
     del rparams
@@ -3001,6 +3190,7 @@ def main(argv=None) -> int:
           "layers, bf16 against f32, card against CPU, training", flush=True)
     dvgg = phase_dilated_vgg(torch, vcfg, device, api, steps, adamw,
                              OptimizerConfig, kernels)
+    cost_cells.append(dvgg.pop("cost"))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3033,6 +3223,23 @@ def main(argv=None) -> int:
           f"{held_gb_d:.2f} GB held before it)", flush=True)
     served_d = phase_serve(torch, np, dcfg, dparams, device, kernels, serve,
                            max_len=128, prompt_range=(16, 65))
+    print("== 13d. the count against the card: deepseek-v2 CARD bf16 decode "
+          "(4 slots, 128 positions)", flush=True)
+    state = api.allocate_decode_state(dcfg, 4, 128, device)
+    cost_cells.append(phase_cost_cell(
+        torch, "deepseek-v2 CARD decode B 4 S 128", dcfg,
+        ShapeConfig("decode", 128, 4, "decode"), steps.make_serve_step(dcfg),
+        (dparams, state, torch.arange(1, 5, dtype=torch.int32, device=device),
+         torch.tensor([96, 80, 64, 48], dtype=torch.int32, device=device)),
+        kernels, want=("mla_decode",),
+        scratch=mops.scratch_bytes(
+            torch.empty(4, dcfg.attention.num_heads,
+                        dcfg.attention.kv_lora_rank, dtype=torch.bfloat16,
+                        device="meta"),
+            torch.empty(4, 128, dcfg.attention.qk_rope_head_dim,
+                        dtype=torch.bfloat16, device="meta"),
+            sm_count(torch.device(device)))))
+    del state
     n, calls = served_d["launches"], served_d["decode_calls"]
     want = {name: 0 for name in kernels}
     want["mla_decode"] = dcfg.num_layers * calls
@@ -3114,6 +3321,23 @@ def main(argv=None) -> int:
     phase12_s = time.perf_counter() - t12
     print(f"phase 12: {phase12_s:.1f} s", flush=True)
 
+    # ---- 13. the count against the card (run inside the phases above) -----
+    phase13_s = sum(c["phase_s"] for c in cost_cells)
+    print(f"== 13. the count against the card, {len(cost_cells)} cells in "
+          f"{phase13_s:.1f} s ({card}):")
+    print("  cell | GFLOP | GB | t_compute ms | t_memory ms | bound ms | "
+          "measured ms | ratio | dominant | roofline fraction | peak GB | "
+          "temp B | requested B (allowance) | allocated B")
+    for c in cost_cells:
+        print(f"  {c['cell']} | {c['flops'] / 1e9:.3f} | "
+              f"{c['hbm_bytes'] / 1e9:.4f} | {c['t_compute_ms']:.4f} | "
+              f"{c['t_memory_ms']:.4f} | {c['bound_ms']:.4f} | "
+              f"{c['measured_ms']:.4f} | {c['ratio']:.2f} | {c['dominant']} |"
+              f" {c['roofline_fraction']:.4f} | {c['peak_bytes'] / 1e9:.4f} |"
+              f" {c['temp_bytes']:,} | {c['requested_bytes']:,} "
+              f"({c['scratch_bytes'] + SCALAR_SLACK:,}) | "
+              f"{c['growth_bytes']:,}")
+
     # ---- summary ---------------------------------------------------------
     launches = {"decode_attention": served["launches"]["decode_attention"],
                 "flash_attention": pre["launches"]["flash_attention"],
@@ -3154,7 +3378,9 @@ def main(argv=None) -> int:
             "wall_ms": row["wall_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"], "dtype": row["dtype"]})
+            "shape": row["shape"], "dtype": row["dtype"],
+            **({"design_bound_ms": row["design_bound_ms"]}
+               if "design_bound_ms" in row else {})})
     # K2 at MLA's expanded shape (bf16, S 512): its numbers beside the row's
     k2_row = next(r for r in kernel_rows if r["name"] == "flash_attention")
     k2_row["mla"] = {key: k2_mla[key] for key in (
@@ -3182,7 +3408,8 @@ def main(argv=None) -> int:
         row_of[name][key.split(" ", 1)[1]] = dict(
             {k: sub_row[k] for k in (
                 "shape", "dtype", "max_abs_err", "ms", "wall_ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms")}, launches=launches_12)
+                "bound_ms", "bound_by", "library_ms", "design_bound_ms")
+             if k in sub_row}, launches=launches_12)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
@@ -3211,6 +3438,7 @@ def main(argv=None) -> int:
              "prefill_deepseek_f32": pre_d32, "mla_block": block_d,
              "slice12_cases": slice12, "internvl2": vlm,
              "seamless": audio, "phase12_s": phase12_s,
+             "cost_cells": cost_cells, "phase13_s": phase13_s,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -5,6 +5,9 @@ A CUDA tensor launches ``csrc/decode_attention.cu`` or raises; nothing
 routes it to the plain version.  The kernel splits the KV axis over
 ``_num_splits`` blocks per (row, KV head); when there is more than one, the
 last of them to finish merges their partial states, so a call is one launch.
+A ``meta`` tensor takes the CUDA route up to the launch and reports the
+kernel's :func:`cost` to ``core.cost.analysis`` instead (a dry run); a CUDA
+call reports it too.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.cost.analysis import note, tensor_bytes
 from repro_torch.kernels import _build, counters, sm_count
 from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.decode_attention import ref
@@ -92,6 +96,33 @@ def _check(q, k, v, kv_len) -> None:
         raise ValueError("decode_attention: tensors must be contiguous")
 
 
+def cost(q, k, v, kv_len, keys: int = None) -> tuple:
+    """(FLOPs, bytes) of one call: the two products, q k^T and p v, over
+    ``keys`` cache positions summed over the rows, 4 Hq hd keys; q, kv_len
+    and those positions of k and v read once, the output written once.
+    ``keys`` defaults to the whole cache, B S: a dry run cannot read
+    ``kv_len`` and the reference's XLA decode counts every position; a
+    caller that knows ``kv_len`` passes the positions it covers."""
+    B, Hq, hd = q.shape
+    _, Hkv, S, _ = k.shape
+    keys = B * S if keys is None else keys
+    return (4 * Hq * hd * keys,
+            2 * tensor_bytes(q) + tensor_bytes(kv_len)
+            + 2 * Hkv * hd * k.element_size() * keys)
+
+
+def scratch_bytes(q, k, sms: int) -> int:
+    """Bytes of split scratch one call allocates on a card of ``sms`` SMs,
+    besides its output: each split's (m, l) and f32 accumulator, none with
+    one split.  It depends on the SM count, which a dry run cannot read, so
+    :func:`cost`'s counter leaves it out of the step's peak."""
+    B, Hq, hd = q.shape
+    _, Hkv, S, _ = k.shape
+    group = Hq // Hkv
+    nsplit = _num_splits(B, Hkv, group, S, sms, _key_tile(group, hd, q.dtype))
+    return 4 * B * Hq * nsplit * (hd + 2) if nsplit > 1 else 0
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(hd)) v over positions < kv_len[b].
@@ -103,19 +134,23 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, kv_len)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     refuse_grad("decode_attention", q, k, v)
+    out = torch.empty_like(q)
+    note("decode_attention", cost, q, k, v, kv_len)
+    if q.device.type == "meta":
+        return out
     B, Hq, hd = q.shape
     _, Hkv, S, _ = k.shape
     group = Hq // Hkv
     tile = _key_tile(group, hd, q.dtype)
-    nsplit = _num_splits(B, Hkv, group, S, sm_count(q.device), tile)
+    sms = sm_count(q.device)
+    nsplit = _num_splits(B, Hkv, group, S, sms, tile)
     fn = _build.function("decode_attention", _ARGTYPES)
-    out = torch.empty_like(q)
     ws = cnt = None
     if nsplit > 1:   # each split's (m, l) and f32 acc, and the counters
-        ws = torch.empty(B * Hq * nsplit * (hd + 2), dtype=torch.float32,
+        ws = torch.empty(scratch_bytes(q, k, sms) // 4, dtype=torch.float32,
                          device=q.device)
         # one per (row, KV head, chunk of 16 query heads)
         cnt = counters("decode_attention", q.device, B * Hkv * -(-group // 16))
@@ -129,4 +164,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-__all__ = ["decode_attention", "decode_attention_ref", "ref"]
+__all__ = ["decode_attention", "decode_attention_ref", "cost",
+           "scratch_bytes", "ref"]

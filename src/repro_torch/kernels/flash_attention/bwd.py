@@ -23,6 +23,10 @@ The route, by dtype and head_dim (:func:`route`):
   (``mma.sync``; each operand split into two TF32 parts, three products);
 * any other head_dim (up to 128): the CUDA cores, in f32 (at hd 128 in f32
   they beat 3xTF32 on an H100, ``PERF.md``).
+
+A ``meta`` tensor takes the CUDA route up to the launch and reports the
+kernel's :func:`cost` to ``core.cost.analysis`` instead (a dry run); a CUDA
+call reports it too.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.cost.analysis import note, tensor_bytes
 from repro_torch.kernels import _build, counters, sm_count
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
@@ -88,6 +93,38 @@ def splits(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, causal: bool,
     return split(B * Hkv * nk, kv_items), split(B * Hq * nq, q_items)
 
 
+def cost(q, k, v, o, lse, do, pairs: int = None) -> tuple:
+    """(FLOPs, bytes) of one call: every product it computes, over ``pairs``
+    (query, key) pairs a head (by default every pair, Sq Sk, as for the
+    forward's :func:`ops.cost`): the dK/dV pass recomputes S = q k^T and dP
+    = do v^T and takes dV and dK, the dQ pass recomputes S and dP again and
+    takes dQ, seven products of 2 B Hq pairs hd each; q, k, v, o, lse, do
+    read once and dq, dk, dv written once."""
+    B, Hq, Sq, hd = q.shape
+    pairs = Sq * k.shape[2] if pairs is None else pairs
+    ins = (q, k, v, o, lse, do)
+    return (7 * 2 * B * Hq * pairs * hd,
+            sum(tensor_bytes(t) for t in ins)
+            + sum(tensor_bytes(t) for t in (q, k, v)))
+
+
+def scratch_bytes(q, k, sms: int, *, causal: bool = True, q_offset: int = 0,
+                  via: str | None = None) -> int:
+    """Bytes of split scratch one call allocates on a card of ``sms`` SMs,
+    besides its outputs and D: the splits' f32 partial sums, two slots (dK,
+    dV) for each split of a dK/dV tile and one for each split of a dQ tile,
+    none unsplit.  It depends on the SM count, which a dry run cannot read,
+    so :func:`cost`'s counter leaves it out of the step's peak."""
+    B, Hq, Sq, hd = q.shape
+    _, Hkv, Sk, _ = k.shape
+    if (via or route(q.dtype, hd)) == ROUTES[1]:
+        return 0
+    n_kv, n_q = splits(B, Hq, Hkv, Sq, Sk, causal, q_offset, sms)
+    slots = (2 * B * Hkv * _tiles(Sk) * n_kv if n_kv > 1 else 0) \
+        + (B * Hq * _tiles(Sq) * n_q if n_q > 1 else 0)
+    return 4 * slots * TILE * (64 if hd <= 64 else 128)
+
+
 def _check(q, k, v, o, lse, do) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or o.shape != q.shape or do.shape != q.shape:
@@ -138,24 +175,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  q_offset=q_offset)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd: no kernel for {q.device}")
     B, Hq, Sq, _ = q.shape
     _, Hkv, Sk, _ = k.shape
-    fn = _build.function("flash_attention_bwd", _ARGTYPES)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    note("flash_attention_bwd", cost, q, k, v, o, lse, do)
+    if q.device.type == "meta":
+        return dq, dk, dv
+    fn = _build.function("flash_attention_bwd", _ARGTYPES)
+    sms = sm_count(q.device)
     n_kv, n_q = (1, 1) if via == ROUTES[1] else splits(
-        B, Hq, Hkv, Sq, Sk, causal, q_offset, sm_count(q.device))
+        B, Hq, Hkv, Sq, Sk, causal, q_offset, sms)
     part = cnt = None
     if n_kv > 1 or n_q > 1:   # each split's partial sums, and the counters
-        kv_tiles, q_tiles = B * Hkv * _tiles(Sk), B * Hq * _tiles(Sq)
-        slots = (2 * kv_tiles * n_kv if n_kv > 1 else 0) \
-            + (q_tiles * n_q if n_q > 1 else 0)
-        part = torch.empty(slots * TILE * (64 if hd <= 64 else 128),
+        part = torch.empty(scratch_bytes(q, k, sms, causal=causal,
+                                         q_offset=q_offset, via=via) // 4,
                            dtype=torch.float32, device=q.device)
         # one per dK/dV tile, then one per dQ tile
-        cnt = counters("flash_attention_bwd", q.device, kv_tiles + q_tiles)
+        cnt = counters("flash_attention_bwd", q.device,
+                       B * Hkv * _tiles(Sk) + B * Hq * _tiles(Sq))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -169,4 +209,4 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = ["flash_attention_bwd", "route", "splits", "attention_bwd_ref",
-           "ref"]
+           "cost", "scratch_bytes", "ref"]

@@ -16,7 +16,9 @@ log-sum-exp, and its backward launches ``csrc/flash_attention_bwd.cu``
 the kernel exactly as before.  The backward takes ``hd_v == hd`` up to
 :data:`bwd.MAX_HEAD_DIM`; another shape under grad mode raises
 ``NotImplementedError`` (MLA training, ROADMAP.md Queue 1).  CPU tensors get
-:func:`attention_ref`, which autograd differentiates.
+:func:`attention_ref`, which autograd differentiates.  A ``meta`` tensor
+takes the CUDA route up to the launch and reports the kernel's :func:`cost`
+to ``core.cost.analysis`` instead (a dry run); a CUDA call reports it too.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.cost.analysis import note, tensor_bytes
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import bwd, ref
 from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
@@ -73,6 +76,22 @@ def _check(q, k, v) -> None:
         raise ValueError("flash_attention: tensors must be contiguous")
 
 
+def cost(q, k, v, with_lse: bool = False, pairs: int = None) -> tuple:
+    """(FLOPs, bytes) of one forward call: the two products, q k^T and p v,
+    over ``pairs`` (query, key) pairs a head, 2 B Hq pairs (hd + hd_v); q,
+    k, v read once, the output (and each row's log-sum-exp, f32) written
+    once.  ``pairs`` defaults to every pair, Sq Sk: causal masking is not
+    subtracted, as the reference's XLA attention counts it; a caller that
+    wants the visible pairs alone passes their number."""
+    B, Hq, Sq, hd = q.shape
+    Sk, hd_v = k.shape[2], v.shape[3]
+    pairs = Sq * Sk if pairs is None else pairs
+    out = B * Hq * Sq * hd_v * q.element_size()
+    return (2 * B * Hq * pairs * (hd + hd_v),
+            sum(tensor_bytes(t) for t in (q, k, v)) + out
+            + (B * Hq * Sq * 4 if with_lse else 0))
+
+
 def _launch(q, k, v, causal: bool, q_offset: int, with_lse: bool
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     global launches
@@ -80,15 +99,18 @@ def _launch(q, k, v, causal: bool, q_offset: int, with_lse: bool
         lse = attention_lse_ref(q, k, causal=causal, q_offset=q_offset) \
             if with_lse else None
         return attention_ref(q, k, v, causal=causal, q_offset=q_offset), lse
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     B, Hq, Sq, hd = q.shape
     _, Hkv, Sk, _ = k.shape
     hd_v = v.shape[3]
-    fn = _build.function("flash_attention", _ARGTYPES)
     out = q.new_empty((B, Hq, Sq, hd_v))
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
+    note("flash_attention", cost, q, k, v, with_lse)
+    if q.device.type == "meta":
+        return out, lse
+    fn = _build.function("flash_attention", _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr(), B, Hq, Hkv, Sq, Sk, hd,
@@ -152,4 +174,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 __all__ = ["flash_attention", "flash_attention_fwd", "FlashAttention",
-           "attention_ref", "bwd", "ref"]
+           "attention_ref", "bwd", "cost", "ref"]

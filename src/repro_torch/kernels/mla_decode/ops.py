@@ -9,7 +9,9 @@ over ``grid_blocks`` blocks per head chunk, on the device
 (``split_schedule`` is that arithmetic in Python), and a second launch
 merges the partial states of every row that more than one block touched,
 in block order.  It has no TPU counterpart: the reference computes this
-function in XLA einsums.
+function in XLA einsums.  A ``meta`` tensor takes the CUDA route up to the
+launch and reports the kernel's :func:`cost` to ``core.cost.analysis``
+instead (a dry run); a CUDA call reports it too.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.cost.analysis import note, tensor_bytes
 from repro_torch.kernels import _build, sm_count
 from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.mla_decode import ref
@@ -84,6 +87,21 @@ def split_schedule(kv_len: Sequence[int], T: int, keys: int,
     return out
 
 
+def cost(q_abs, q_rope, ckv, krope, kv_len, keys: int = None) -> tuple:
+    """(FLOPs, bytes) of one call: the products q_abs ckv^T, q_rope krope^T
+    and p ckv over ``keys`` cache positions summed over the rows, 2 H keys
+    (2 L + R); the queries, kv_len and those positions of ckv and krope
+    read once, the context written once.  ``keys`` defaults to the whole
+    cache, B T, as the reference's einsums count it (a dry run cannot read
+    ``kv_len``)."""
+    B, H, L = q_abs.shape
+    T, R = krope.shape[1:]
+    keys = B * T if keys is None else keys
+    return (2 * H * keys * (2 * L + R),
+            2 * tensor_bytes(q_abs) + tensor_bytes(q_rope)
+            + tensor_bytes(kv_len) + keys * (L + R) * ckv.element_size())
+
+
 def _check(q_abs, q_rope, ckv, krope, kv_len) -> None:
     if q_abs.dim() != 3 or q_rope.dim() != 3 or ckv.dim() != 3 \
             or krope.dim() != 3:
@@ -120,6 +138,19 @@ def _check(q_abs, q_rope, ckv, krope, kv_len) -> None:
                          "kernel copies rows 16 bytes at a time)")
 
 
+def scratch_bytes(q_abs, krope, sms: int) -> int:
+    """Bytes of split scratch one call allocates on a card of ``sms`` SMs,
+    besides its output: each (head chunk, slot)'s (m, l) and f32 acc for
+    the chunk's heads, a slot per block and per row.  It depends on the SM
+    count, which a dry run cannot read, so :func:`cost`'s counter leaves it
+    out of the step's peak."""
+    B, H, L = q_abs.shape
+    T, R = krope.shape[1:]
+    heads, keys = ROUTES[route(q_abs.dtype, L, R)]
+    nblocks = grid_blocks(B, H, T, sms, heads, keys)
+    return 4 * -(-H // heads) * (nblocks + B) * heads * (L + 2)
+
+
 def mla_decode(q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
                krope: torch.Tensor, kv_len: torch.Tensor,
                scale: float) -> torch.Tensor:
@@ -134,20 +165,21 @@ def mla_decode(q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
     _check(q_abs, q_rope, ckv, krope, kv_len)
     if q_abs.device.type == "cpu":
         return mla_decode_ref(q_abs, q_rope, ckv, krope, kv_len, scale)
-    if q_abs.device.type != "cuda":
+    if q_abs.device.type not in ("cuda", "meta"):
         raise ValueError(f"mla_decode: no kernel for {q_abs.device}")
     refuse_grad("mla_decode", q_abs, q_rope, ckv, krope)
+    out = torch.empty_like(q_abs)
+    note("mla_decode", cost, q_abs, q_rope, ckv, krope, kv_len)
+    if q_abs.device.type == "meta":
+        return out
     B, H, L = q_abs.shape
     T, R = krope.shape[1:]
     heads, keys = ROUTES[route(q_abs.dtype, L, R)]
-    nblocks = grid_blocks(B, H, T, sm_count(q_abs.device), heads, keys)
+    sms = sm_count(q_abs.device)
+    nblocks = grid_blocks(B, H, T, sms, heads, keys)
     fn = _build.function("mla_decode", _ARGTYPES)
-    out = torch.empty_like(q_abs)
-    # each (head chunk, slot)'s (m, l) and f32 acc for its `heads` heads:
-    # slot block + row, at most nblocks + B of them
-    slots = -(-H // heads) * (nblocks + B) * heads
-    ws = torch.empty(slots * (L + 2), dtype=torch.float32,
-                     device=q_abs.device)
+    ws = torch.empty(scratch_bytes(q_abs, krope, sms) // 4,
+                     dtype=torch.float32, device=q_abs.device)
     stream = torch.cuda.current_stream(q_abs.device).cuda_stream
     err = fn(q_abs.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
              krope.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
@@ -159,4 +191,4 @@ def mla_decode(q_abs: torch.Tensor, q_rope: torch.Tensor, ckv: torch.Tensor,
 
 
 __all__ = ["mla_decode", "mla_decode_ref", "ref", "route", "grid_blocks",
-           "split_schedule"]
+           "split_schedule", "cost", "scratch_bytes"]

@@ -11,7 +11,10 @@ leaves in its scratch (:func:`ops.rwkv6_scan_fwd`).  A call is three
 launches on one stream, the forward's in reverse: each chunk's own
 contribution to the state's gradient, the reverse pass over each row's
 chunks, each chunk's dr, dk, dv and dlogw (no atomics: the result is the
-same bits from call to call); ``launches`` counts calls.
+same bits from call to call); ``launches`` counts calls.  A ``meta``
+tensor takes the CUDA route up to the launch and reports the kernel's
+:func:`cost` to ``core.cost.analysis`` instead (a dry run); a CUDA call
+reports it too.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.cost.analysis import note, tensor_bytes
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan import ops, ref
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_bwd_ref
@@ -29,6 +33,20 @@ launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 18 + [_I] * 4 + [_P]
+
+
+def cost(ins, outs) -> tuple:
+    """(FLOPs, bytes) of one call on inputs ``ins`` (r, k, v, logw, u, dout,
+    states and dstate if given) and outputs ``outs``.  Its products, chunk
+    by chunk: the four (c x hd)(hd x hd) ones (dr from the entering state,
+    dk and dv from the gradient at the chunk's end, the gradient entering
+    it) and the five (c x c)(c x hd) ones (M = dout v^T, the forward's
+    scores again, and the in-chunk sums for dr, dk and dv), 8 N sum c hd^2
+    + 10 N sum c^2 hd.  Inputs read once, outputs written once."""
+    N, S, hd = ins[0].shape
+    a, b = ops.chunk_products(S, hd)
+    return (N * (8 * a + 10 * b),
+            sum(tensor_bytes(t) for t in tuple(ins) + tuple(outs)))
 
 
 def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,7 +73,7 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dr, dk, dv, dlogw, du, ds0 = rwkv6_scan_bwd_ref(
             r, k, v, logw, u, state0, dout, dstate)
         return dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dlogw, du, ds0
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"rwkv6_scan_bwd: no kernel for {r.device}")
     states_shape, wl_shape = ops.scratch_shapes(N, S, hd)
     if states is None or tuple(states.shape) != states_shape \
@@ -76,6 +94,9 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gst = torch.empty(states_shape, dtype=torch.float32, device=dev)
     wl, dup, q = (torch.empty(wl_shape, dtype=torch.float32, device=dev)
                   for _ in range(3))
+    note("rwkv6_scan_bwd", cost, ins, (dr, dk, dv, dlogw, du, ds0))
+    if dev.type == "meta":
+        return dr, dk, dv, dlogw, du, ds0
     fn = _build.function("rwkv6_scan_bwd", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
@@ -90,4 +111,4 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dr, dk, dv, dlogw, du, ds0
 
 
-__all__ = ["rwkv6_scan_bwd", "rwkv6_scan_bwd_ref", "ref"]
+__all__ = ["rwkv6_scan_bwd", "rwkv6_scan_bwd_ref", "cost", "ref"]

@@ -15,7 +15,10 @@ Under grad mode, with an input that requires grad, a CUDA call is a
 kernel's scratch of states (the state entering each chunk) instead of
 freeing it, and its backward launches ``csrc/rwkv6_scan_bwd.cu``
 (:mod:`.bwd`) from them.  Outside grad mode the scratch is freed as before.
-CPU tensors get :func:`rwkv6_scan_ref`, which autograd differentiates.
+CPU tensors get :func:`rwkv6_scan_ref`, which autograd differentiates.  A
+``meta`` tensor takes the CUDA route up to the launch and reports the
+kernel's :func:`cost` to ``core.cost.analysis`` instead (a dry run); a CUDA
+call reports it too.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.cost.analysis import note, tensor_bytes
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan import ref
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
@@ -52,6 +56,25 @@ def scratch_shapes(N: int, S: int, hd: int) -> tuple:
     contribution, then the state entering it) and its log2 decay."""
     nc, hdp = num_chunks(S), padded_head_dim(hd)
     return (N, nc, hdp, hdp), (N, nc, hdp)
+
+
+def chunk_products(S: int, hd: int) -> tuple:
+    """(sum over a row's chunks of c hd^2, of c^2 hd), c each chunk's steps:
+    the sizes of the (c x hd)(hd x hd) and (c x c)(c x hd) products of the
+    chunked form."""
+    full, last = divmod(S, CHUNK)
+    return S * hd * hd, (full * CHUNK * CHUNK + last * last) * hd
+
+
+def cost(r, k, v, logw, u, state0, outs) -> tuple:
+    """(FLOPs, bytes) of one forward call, outputs ``outs``.  Its products,
+    chunk by chunk: the chunk's own state k^T v, the in-chunk scores r k^T
+    and their product with v, and r times the entering state, 4 N (sum c
+    hd^2 + sum c^2 hd) over the chunks' sizes c.  Inputs read once, outputs
+    written once."""
+    a, b = chunk_products(r.shape[1], r.shape[2])
+    return (4 * r.shape[0] * (a + b),
+            sum(tensor_bytes(t) for t in (r, k, v, logw, u, state0) + outs))
 
 
 def _check(r, k, v, logw, u, state0) -> None:
@@ -85,12 +108,15 @@ def _launch(r, k, v, logw, u, state0):
     chunk."""
     global launches
     N, S, hd = r.shape
-    fn = _build.function("rwkv6_scan", _ARGTYPES)
     out = torch.empty((N, S, hd), dtype=torch.float32, device=r.device)
     state = torch.empty_like(state0)
     states_shape, wlast_shape = scratch_shapes(N, S, hd)
     states = torch.empty(states_shape, dtype=torch.float32, device=r.device)
     wlast = torch.empty(wlast_shape, dtype=torch.float32, device=r.device)
+    note("rwkv6_scan", cost, r, k, v, logw, u, state0, (out, state))
+    if r.device.type == "meta":
+        return out, state, states
+    fn = _build.function("rwkv6_scan", _ARGTYPES)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
              u.data_ptr(), state0.data_ptr(), out.data_ptr(), state.data_ptr(),
@@ -107,7 +133,7 @@ def rwkv6_scan_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``scratch_shapes(...)[0]``), as :class:`RWKV6Scan` keeps them for
     :func:`bwd.rwkv6_scan_bwd`.  No autograd; CUDA only."""
     _check(r, k, v, logw, u, state0)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"rwkv6_scan_fwd: no kernel for {r.device}")
     return _launch(r, k, v, logw, u, state0)
 
@@ -146,7 +172,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(r, k, v, logw, u, state0)
     if r.device.type == "cpu":
         return rwkv6_scan_ref(r, k, v, logw, u, state0)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"rwkv6_scan: no kernel for {r.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, logw, u, state0)):
@@ -154,4 +180,5 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(r, k, v, logw, u, state0)[:2]
 
 
-__all__ = ["rwkv6_scan", "rwkv6_scan_fwd", "RWKV6Scan", "rwkv6_scan_ref", "ref"]
+__all__ = ["rwkv6_scan", "rwkv6_scan_fwd", "RWKV6Scan", "rwkv6_scan_ref",
+           "cost", "ref"]

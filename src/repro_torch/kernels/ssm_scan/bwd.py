@@ -11,7 +11,9 @@ the forward kernel kept every ``CHECKPOINT`` steps
 on one stream: the reverse walk, which writes the per-channel gradients and
 one partial sum of dB and dC a block of channels, then the sums of the
 partials in a fixed order (no atomics: the result is the same bits from
-call to call); ``launches`` counts calls.
+call to call); ``launches`` counts calls.  A ``meta`` tensor takes the
+CUDA route up to the launch and reports the kernel's :func:`cost` to
+``core.cost.analysis`` instead (a dry run); a CUDA call reports it too.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.cost.analysis import note, tensor_bytes
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssm_scan import ref
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
@@ -49,6 +52,18 @@ def blocks_per_row(di: int, ds: int) -> int:
     return -(-di // per)
 
 
+def cost(ins, outs, ds: int) -> tuple:
+    """(FLOPs, bytes) of one call on inputs ``ins`` (u, dt, A_log, B, C, D,
+    ckpt, dy and dh if given) and outputs ``outs``.  Its products, per
+    (row, step, channel, state): the forward's outer product (dt u) B again
+    (each state recomputed from its checkpoint), g's outer product dy C, and
+    the contractions for dC, dB, du and ddt, 12 Bz S di ds in all.  Inputs
+    read once, outputs written once."""
+    Bz, S, di = ins[0].shape
+    return (12 * Bz * S * di * ds,
+            sum(tensor_bytes(t) for t in tuple(ins) + tuple(outs)))
+
+
 def ssm_scan_bwd(u: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
                  h0: torch.Tensor, dy: torch.Tensor, dh: torch.Tensor = None,
@@ -73,7 +88,7 @@ def ssm_scan_bwd(u: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         du, ddt, dA, dB, dC, dD, dh0 = ssm_scan_bwd_ref(
             u, dt, A_log, B, C, D, h0, dy, dh)
         return du.to(u.dtype), ddt, dA, dB.to(B.dtype), dC.to(C.dtype), dD, dh0
-    if u.device.type != "cuda":
+    if u.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssm_scan_bwd: no kernel for {u.device}")
     if ckpt is None or tuple(ckpt.shape) != checkpoint_shape(Bz, S, di, ds) \
             or ckpt.dtype != torch.float32:
@@ -97,6 +112,9 @@ def ssm_scan_bwd(u: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
                           dtype=torch.float32, device=dev)
     part_a = torch.empty((Bz, di, ds), dtype=torch.float32, device=dev)
     part_d = torch.empty((Bz, di), dtype=torch.float32, device=dev)
+    note("ssm_scan_bwd", cost, ins, (du, ddt, dA, dB, dC, dD, dh0), ds)
+    if dev.type == "meta":
+        return du, ddt, dA, dB, dC, dD, dh0
     fn = _build.function("ssm_scan_bwd", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(u.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
@@ -111,4 +129,4 @@ def ssm_scan_bwd(u: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     return du, ddt, dA, dB, dC, dD, dh0
 
 
-__all__ = ["ssm_scan_bwd", "ssm_scan_bwd_ref", "ref"]
+__all__ = ["ssm_scan_bwd", "ssm_scan_bwd_ref", "cost", "ref"]

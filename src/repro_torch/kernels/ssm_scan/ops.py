@@ -17,7 +17,9 @@ state entering every ``bwd.CHECKPOINT`` steps, and its backward launches
 ``h_out`` (it would write in place into a tensor the backward keeps).
 Outside grad mode nothing more is written, so serving runs the kernel
 exactly as before.  CPU tensors get :func:`ssm_scan_ref`, which autograd
-differentiates.
+differentiates.  A ``meta`` tensor takes the CUDA route up to the launch and
+reports the kernel's :func:`cost` to ``core.cost.analysis`` instead (a dry
+run); a CUDA call reports it too.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.cost.analysis import note, tensor_bytes
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssm_scan import bwd, ref
 from repro_torch.kernels.ssm_scan.bwd import checkpoint_shape
@@ -94,9 +97,23 @@ def _wants_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def cost(u, dt, A_log, B, C, D, h0, y, h, ckpt=None) -> tuple:
+    """(FLOPs, bytes) of one call.  The kernel walks the steps one by one;
+    its products are, per (row, step, channel, state), the input's outer
+    product (dt u) B into the state and the state's contraction with C, 4
+    Bz S di ds in all.  Inputs read once, y, h (and the checkpoints) written
+    once."""
+    Bz, S, di = u.shape
+    ins = (u, dt, A_log, B, C, D, h0)
+    outs = (y, h) + (() if ckpt is None else (ckpt,))
+    return (4 * Bz * S * di * A_log.shape[1],
+            sum(tensor_bytes(t) for t in ins + outs))
+
+
 def _launch(u, dt, A_log, B, C, D, h0, h, ckpt=None) -> torch.Tensor:
     """One launch of the forward kernel on CUDA tensors, the final state into
-    h and, if ckpt is given, the checkpoints into it; returns y."""
+    h and, if ckpt is given, the checkpoints into it; returns y.  On meta
+    tensors: y, and the cost noted."""
     global launches
     Bz, S, di = u.shape
     ds = A_log.shape[1]
@@ -105,6 +122,9 @@ def _launch(u, dt, A_log, B, C, D, h0, h, ckpt=None) -> torch.Tensor:
         raise ValueError("ssm_scan: the kernel reads A_log and h0 and writes "
                          "h_out 16 bytes at a time; they must be 16-byte "
                          "aligned")
+    note("ssm_scan", cost, u, dt, A_log, B, C, D, h0, y, h, ckpt)
+    if u.device.type == "meta":
+        return y
     fn = _build.function("ssm_scan", _ARGTYPES)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = fn(u.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
@@ -123,7 +143,7 @@ def ssm_scan_fwd(u: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     as :class:`SSMScan` keeps them for :func:`bwd.ssm_scan_bwd`; one launch
     of the kernel on CUDA tensors.  No autograd; CUDA only."""
     _check(u, dt, A_log, B, C, D, h0)
-    if u.device.type != "cuda":
+    if u.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssm_scan_fwd: no kernel for {u.device}")
     ckpt = torch.empty(checkpoint_shape(*u.shape, A_log.shape[1]),
                        dtype=torch.float32, device=u.device)
@@ -175,7 +195,7 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         raise ValueError("ssm_scan: h_out is not taken under grad mode: the "
                          "backward keeps the inputs, and h_out may be one of "
                          "them (h0); leave it None")
-    if u.device.type != "cuda":
+    if u.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssm_scan: no kernel for {u.device}")
     if grad:
         return SSMScan.apply(u, dt, A_log, B, C, D, h0)
@@ -183,4 +203,5 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     return _launch(u, dt, A_log, B, C, D, h0, h), h
 
 
-__all__ = ["ssm_scan", "ssm_scan_fwd", "SSMScan", "ssm_scan_ref", "bwd", "ref"]
+__all__ = ["ssm_scan", "ssm_scan_fwd", "SSMScan", "ssm_scan_ref", "bwd",
+           "cost", "ref"]

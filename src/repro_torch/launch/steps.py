@@ -2,11 +2,11 @@
 and decode."""
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.config import ModelConfig, OptimizerConfig
+from repro_torch.core.config import ModelConfig, OptimizerConfig, ShapeConfig
 from repro_torch.models import api
 from repro_torch.optim import adamw
 
@@ -56,3 +56,20 @@ def make_serve_step(cfg: ModelConfig) -> Callable:
         return api.decode_step(params, cfg, state, tokens, pos)
 
     return serve_step
+
+
+def step_for_shape(cfg: ModelConfig, shape: ShapeConfig,
+                   opt_cfg: Optional[OptimizerConfig] = None,
+                   remat: str = "dots") -> Callable:
+    """The step of a shape cell (the reference's returns its kind beside it,
+    which nothing here reads):
+
+    train  -> train_step(params, opt_state, batch)
+    prefill-> prefill_step(params, batch)
+    decode -> serve_step(params, state, tokens, pos)
+    """
+    if shape.mode == "train":
+        return make_train_step(cfg, opt_cfg or OptimizerConfig(), remat=remat)
+    if shape.mode == "prefill":
+        return make_prefill_step(cfg)
+    return make_serve_step(cfg)

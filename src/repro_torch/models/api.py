@@ -15,6 +15,7 @@
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -48,7 +49,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig):
 
 def param_shapes(cfg: ModelConfig):
     """The param tree's shapes and dtypes, from an init traced with fake
-    tensors (the twin of the reference's ``jax.eval_shape``)."""
+    tensors (the twin of the reference's ``jax.eval_shape``).  A new tree
+    each call, the trace made once per config."""
+    return L.tree_map(lambda s: s, _param_shapes(cfg))
+
+
+@functools.lru_cache(maxsize=16)
+def _param_shapes(cfg: ModelConfig):
     with FakeTensorMode():
         fake = init_params(torch.Generator(), cfg)
     return L.tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), fake)

@@ -308,6 +308,13 @@ MOE_GROUP_SIZE = 4096   # routing-group tokens; capacity scales with the
 #                         group, not the sequence
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` in f32 by one comparison, the same ops on every
+    device (``F.one_hot`` scatters on the card and compares on ``meta``, so
+    a dry run would count other ops than the card runs)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
 def apply_moe(p: Params, x: torch.Tensor, cfg,
               capacity_factor: Optional[float] = None,
               compute_dtype=torch.bfloat16
@@ -334,7 +341,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg,
                                         min=1e-9)
 
     # expert one-hot per choice: (G,S,K,E)
-    onehot = F.one_hot(gate_idx, E).float()
+    onehot = one_hot(gate_idx, E)
     # position of each (token, choice) within its expert queue; priority:
     # earlier tokens first, then earlier choices
     flat = onehot.reshape(G, S * K, E)
@@ -343,7 +350,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg,
     pos = torch.clamp(pos, 0, C - 1).long()
 
     # dispatch one-hot over capacity: (G,S,K,E,C) -> reduce over K
-    cap_oh = F.one_hot(pos, C).float() * within_cap[..., None] \
+    cap_oh = one_hot(pos, C) * within_cap[..., None] \
         * onehot[..., None]
     dispatch = cap_oh.sum(dim=2)                                   # (G,S,E,C)
     combine = (cap_oh * gate_vals[..., None, None]).sum(dim=2)

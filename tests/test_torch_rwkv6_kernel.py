@@ -105,8 +105,8 @@ def test_cpu_wrapper_takes_plain_version_and_counts_it():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     r, k, v, logw, u, s0 = [t for _, t in _inputs(2, 5, 8, "float32")]
-    with pytest.raises(ValueError):                       # no kernel for meta
-        ops.rwkv6_scan(*(t.to("meta") for t in (r, k, v, logw, u, s0)))
+    with pytest.raises(ValueError):                 # meta checks as the card
+        ops.rwkv6_scan(*(t.to("meta") for t in (r, k[:, :4], v, logw, u, s0)))
     with pytest.raises(ValueError):                       # k of another shape
         ops.rwkv6_scan(r, k[:, :4], v, logw, u, s0)
     with pytest.raises(ValueError):                       # u not (N, hd)

@@ -88,16 +88,19 @@ def test_rwkv6_scan_is_differentiable_on_the_cpu(dtype):
 def test_ssm_scan_refuses_h_out_under_grad_before_any_kernel():
     """On the card a grad-mode call with h_out would write in place into a
     tensor the backward keeps; the op raises before it looks for a kernel
-    (shown on meta tensors, which have none), and only under grad mode."""
+    (shown on meta tensors, which take the card's route up to the launch),
+    and only under grad mode."""
     args = [t.to("meta") for t in _ssm_args()]
     args[0].requires_grad_()
     h0 = args[-1]
+    launches = sops.launches
     with pytest.raises(ValueError, match="h_out is not taken under grad"):
         sops.ssm_scan(*args, h_out=h0)
-    with torch.no_grad(), pytest.raises(ValueError, match="no kernel for meta"):
-        sops.ssm_scan(*args, h_out=h0)
-    with pytest.raises(ValueError, match="no kernel for meta"):
-        sops.ssm_scan(*args)                       # grad mode, no h_out
+    with torch.no_grad():
+        y, h = sops.ssm_scan(*args, h_out=h0)
+    assert h is h0 and y.shape == args[0].shape
+    y, h = sops.ssm_scan(*args)                    # grad mode, no h_out
+    assert y.grad_fn is not None and sops.launches == launches
     cpu = _ssm_args()                              # the CPU takes h_out
     cpu[0].requires_grad_()
     out = torch.empty_like(cpu[-1])
@@ -111,11 +114,13 @@ def test_the_forwards_for_the_backward_and_the_backwards_need_a_card():
         sops.ssm_scan_fwd(*ssm)
     with pytest.raises(ValueError, match="no kernel for cpu"):
         kops.rwkv6_scan_fwd(*wkv)
+    # off the CPU (the card, or meta tensors in a dry run) the backwards
+    # start from what the forward kernel kept, and refuse a call without it
     meta = [t.to("meta") for t in ssm]
-    with pytest.raises(ValueError, match="no kernel for meta"):
+    with pytest.raises(ValueError, match="checkpoints"):
         sbwd.ssm_scan_bwd(*meta, torch.empty(meta[1].shape, device="meta"))
     meta = [t.to("meta") for t in wkv]
-    with pytest.raises(ValueError, match="no kernel for meta"):
+    with pytest.raises(ValueError, match="states"):
         kbwd.rwkv6_scan_bwd(*meta, torch.empty(meta[3].shape, device="meta"))
 
 

@@ -107,8 +107,8 @@ def test_cpu_wrapper_takes_plain_version_and_counts_it():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     u, dt, A, B, C, D, h0 = [t for _, t in _inputs(2, 5, 8, 8, "float32")]
-    with pytest.raises(ValueError):                       # no kernel for meta
-        ops.ssm_scan(*(t.to("meta") for t in (u, dt, A, B, C, D, h0)))
+    with pytest.raises(ValueError):                 # meta checks as the card
+        ops.ssm_scan(*(t.to("meta") for t in (u, dt[:, :4], A, B, C, D, h0)))
     with pytest.raises(ValueError):                       # dt of another shape
         ops.ssm_scan(u, dt[:, :4], A, B, C, D, h0)
     with pytest.raises(ValueError):                       # S = 0
