@@ -36,7 +36,11 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    each row), and flash attention at
    MLA's expanded shape (hd 192, hd_v 128, 128 heads) and at the smoke's
    (24, 16), each beside SDPA on the same function and the list of SDPA's
-   backends that take it;
+   backends that take it; and K2's backward at those widths: (192, 128)
+   with 128 heads in bf16 (wgmma, the two-warpgroup dK/dV kernel) and f32
+   (CUDA cores) at deepseek TRAIN_CARD's step (B 2, S 512), a ragged S 221
+   and 64 queries over 300 keys, bf16 over 2 heads of 300 (the dK/dV walk
+   split), and (24, 16) in f32 (3xTF32) and bf16 at 40 and 40 over 70;
 3. serve 8 requests with the port's ``BatchedServer`` on qwen1.5-0.5b at
    full width (24 layers, d_model 1024, vocab 151,936, f32, random weights
    from a seed): every decode step must go through the decode kernel;
@@ -64,7 +68,16 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    jamba-1.5-large-398b cut to its first layer (``TRAIN_CARD``: Mamba
    mixer and dense FFN at every published width) in bf16, batch 2 x 512,
    20 steps (the selective scan and its backward once a step; the loss
-   finite and falling);
+   finite and falling); (f) deepseek-v2 smoke in f32: the loss and every
+   gradient on the card equal the CPU's under remat "none", "dots" and
+   "full" (K2 and its backward at (24, 16)); (g) deepseek-v2 cut to its
+   first layer (``TRAIN_CARD``: MLA and the dense FFN at every published
+   width) in f32, one step of B 1 x 256 on the card and on the CPU (K2 and
+   its backward at (192, 128) on the CUDA cores); (h) ``TRAIN_CARD`` in
+   bf16 through ``main`` at lr 1e-4, B 2 x 512, 20 steps (K2 and its
+   backward once a step on wgmma; the loss finite and falling; one step
+   profiled, and the head's device ms at that shape), and the step counted
+   by the dry run against the card (phase 13);
 6. serve the same traffic on rwkv6-1.6b at full width (24 layers, d_model
    2048, vocab 65,536, f32, random weights from a seed): every admission
    prefills its prompt through the WKV scan kernel, once per layer;
@@ -549,7 +562,8 @@ def mla_case(torch, F, mops, B, H, L, R, T, kv_len, dtype, gen):
 
 
 def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
-                   q_offset, dtype, gen, compare=False, profile=False):
+                   q_offset, dtype, gen, compare=False, profile=False,
+                   hd_v=None, via=None):
     """One check of the flash-attention backward kernel + timings.  The
     forward kernel's row log-sum-exps are held to the plain version's; the
     backward kernel, fed the forward kernel's output and lse, to the plain
@@ -558,11 +572,14 @@ def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
     give the kernel's gradients bit for bit.  ``compare``: the CUDA-core
     route too, checked and timed beside the tensor-core one; ``profile``:
     each launch timed by the profiler (``launch_us``).  The bound takes the
-    rate of the arithmetic the route runs (bf16 wgmma, 3xTF32 or f32 FMA)."""
+    rate of the arithmetic the route runs (bf16 wgmma, 3xTF32 or f32 FMA).
+    ``hd_v`` (V's, the output's and dO's width) defaults to hd; ``via``
+    names the route the row expects its widths to take."""
+    hd_v = hd if hd_v is None else hd_v
     dt = getattr(torch, dtype)
     q, k, v, do = (torch.randn(*shape, device="cuda", generator=gen).to(dt)
                    for shape in ((B, Hq, Sq, hd), (B, Hkv, Sk, hd),
-                                 (B, Hkv, Sk, hd), (B, Hq, Sq, hd)))
+                                 (B, Hkv, Sk, hd_v), (B, Hq, Sq, hd_v)))
     kw = dict(causal=causal, q_offset=q_offset)
     out, lse = fops.flash_attention_fwd(q, k, v, **kw)
     got = bops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
@@ -583,7 +600,9 @@ def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
     again = bops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     check(all(torch.equal(g, a) for g, a in zip(got, again)),
           "two calls on the same inputs differ")
-    route = bops.route(dt, hd)
+    route = bops.route(dt, hd, hd_v)
+    check(via is None or route == via, f"the backward at {dtype} ({hd}, "
+          f"{hd_v}) takes the {route}, not the {via}")
 
     lib_in = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     if causal and q_offset == 0 and Sq == Sk:
@@ -600,6 +619,15 @@ def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
         return torch.autograd.grad(lib_out, lib_in, do, retain_graph=True)
 
     extra = {}
+    if hd_v != hd:   # the SDPA backends whose forward and backward take it
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(
+                *lib_in, attn_mask=None if not causal else (
+                    q_offset + torch.arange(Sq, device="cuda"))[:, None]
+                >= torch.arange(Sk, device="cuda")[None, :],
+                enable_gqa=Hq != Hkv)
+            return torch.autograd.grad(out, lib_in, do)
+        extra["sdpa"] = sdpa_backends(torch, sdpa_fwd_bwd)
     if compare and route == "tensor_cores":
         simt = functools.partial(bops.flash_attention_bwd, q, k, v, out, lse,
                                  do, **kw, via="cuda_cores")
@@ -612,15 +640,16 @@ def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
 
     # the kernel's cost formula at the visible (query, key) pairs: seven
     # products (S and dP in both passes, dV, dK, dQ); the gradient needs five
-    # (S and dP once), the bound's count
-    design = bops.cost(q, k, v, out, lse, do,
-                       pairs=visible_pairs(Sq, Sk, causal, q_offset))
-    flops, nbytes = design[0] * 5 // 7, design[1]
+    # (S and dP once: 3 hd + 2 hd_v a pair), the bound's count
+    pairs = visible_pairs(Sq, Sk, causal, q_offset)
+    design = bops.cost(q, k, v, out, lse, do, pairs=pairs)
+    flops, nbytes = 2 * B * Hq * pairs * (3 * hd + 2 * hd_v), design[1]
     rate = "float32" if route == "cuda_cores" else \
         "tf32x3" if dtype == "float32" else "bfloat16"
     return dict(
         shape=(f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} hd={hd} "
-               f"causal={causal} q_offset={q_offset}"),
+               + (f"hd_v={hd_v} " if hd_v != hd else "")
+               + f"causal={causal} q_offset={q_offset}"),
         dtype=dtype, route=route, rate=rate, max_abs_err=err,
         err_vs_autograd=err_auto, lse_err=lse_err, **extra,
         **_timings(torch,
@@ -628,6 +657,34 @@ def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
                    lambda: fops.ref.attention_bwd_ref(q, k, v, out, lse, do,
                                                       **kw), library),
         **_bound(nbytes, flops, rate, design))
+
+
+def mla_bwd_rows(torch, F, fops, bops, gen) -> list:
+    """K2's backward at MLA's widths.  (192, 128) with 128 heads: bf16 on
+    wgmma (the two-warpgroup dK/dV kernel; its CUDA-core route timed beside)
+    and f32 on the CUDA cores, at TRAIN_CARD's step (B 2, S 512, causal), a
+    ragged prompt (S 221) and 64 queries over 300 keys at offset 236 (the dQ
+    walk split over blocks); bf16 at B 1, 2 heads, S 300, where the dK/dV
+    walk splits.  The smoke's (24, 16): f32 on 3xTF32 and bf16 on wgmma,
+    at 40 queries and at 40 over 70 keys.  Each route is checked to be the
+    one its widths take."""
+    rows = []
+    for dtype, via in (("bfloat16", "tensor_cores"), ("float32", "cuda_cores")):
+        for B, Sq, Sk, off in ((2, 512, 512, 0), (1, 221, 221, 0),
+                               (1, 64, 300, 236)):
+            rows.append(flash_bwd_case(
+                torch, F, fops, bops, B, 128, 128, Sq, Sk, 192, True, off,
+                dtype, gen, compare=B == 2 and dtype == "bfloat16",
+                profile=B == 2, hd_v=128, via=via))
+    rows.append(flash_bwd_case(torch, F, fops, bops, 1, 2, 2, 300, 300, 192,
+                               True, 0, "bfloat16", gen, hd_v=128,
+                               via="tensor_cores"))
+    for dtype in ("float32", "bfloat16"):
+        for Sq, Sk, off in ((40, 40, 0), (40, 70, 30)):
+            rows.append(flash_bwd_case(torch, F, fops, bops, 2, 4, 4, Sq, Sk,
+                                       24, True, off, dtype, gen, hd_v=16,
+                                       via="tensor_cores"))
+    return rows
 
 
 def _wkv_f64(torch, r, k, v, logw, u, state0):
@@ -1557,9 +1614,9 @@ def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
 
 def phase_train(torch, np, cfg, kernels, steps, train, adamw, per_step,
                 n_steps=30, batch=4, seq=512, profile_at=10, dtype="float32",
-                converge=True, arch="qwen1.5-0.5b", model_cfg=None):
+                converge=True, arch="qwen1.5-0.5b", model_cfg=None, lr=3e-4):
     """``launch/train.py``'s own ``main`` on the card (``--arch arch --dtype
-    dtype``, with ``model_cfg`` passed as its config when given):
+    dtype --lr lr``, with ``model_cfg`` passed as its config when given):
     ``n_steps`` steps of the synthetic pipeline, checkpointing into a
     temporary directory.  Each step is timed on the host clock, ending in a
     synchronise; step ``profile_at`` is profiled for its device kernel time
@@ -1616,7 +1673,7 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, per_step,
             losses = train.main(["--arch", arch, "--steps",
                                  str(n_steps), "--batch", str(batch),
                                  "--seq", str(seq), "--warmup", "5",
-                                 "--dtype", dtype,
+                                 "--dtype", dtype, "--lr", str(lr),
                                  "--ckpt-dir", ckpt_dir, "--ckpt-every",
                                  "1000", "--log-every", "10"], cfg=model_cfg)
             wall = time.perf_counter() - t0
@@ -1694,6 +1751,29 @@ def phase_train(torch, np, cfg, kernels, steps, train, adamw, per_step,
                                bound_ms=opt_bound))
 
 
+def head_device_ms(torch, cfg, params, batch, seq) -> float:
+    """Device ms of the LM head and its cross-entropy (``lm.chunked_xent``:
+    the head projection and log-softmax a chunk of positions at a time,
+    recomputed in the backward), forward and backward, at a train step's
+    shape from random hidden states: ``time_ms``'s CUDA events, each call
+    behind a sleep that covers its enqueue (a profiler session here, late
+    in a long run, recorded no kernel)."""
+    from repro_torch.models import lm
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h = torch.randn(batch, seq - 1, cfg.d_model, device="cuda",
+                    generator=gen).to(getattr(torch, cfg.compute_dtype))
+    h.requires_grad_()
+    targets = torch.randint(0, cfg.vocab_size, (batch, seq - 1),
+                            device="cuda", generator=gen)
+    w = params["lm_head"]["w"].detach().requires_grad_()
+
+    def run():
+        loss = lm.chunked_xent({"lm_head": {"w": w}}, cfg, h, targets)
+        return torch.autograd.grad(loss, [h, w])
+
+    return time_ms(torch, run, reps=3, inner=1)[0]
+
+
 def _loss_and_grads(torch, api, adamw, cfg, params, batch, remat="none"):
     """(loss, {path: gradient}) of ``api.loss_fn`` through detached aliases
     of the param leaves, as the train step takes them."""
@@ -1707,18 +1787,20 @@ def _loss_and_grads(torch, api, adamw, cfg, params, batch, remat="none"):
 
 
 def phase_grad_check(torch, device, api, adamw, get_arch, pipeline, kernels,
-                     dops, batch=2, seq=70):
-    """The recurrent models' gradients on the card: rwkv6 smoke (K4 and its
-    backward) and jamba smoke (K3 and its backward, K2 and its backward) in
-    f32, from the same params and batch as on the CPU, give the loss and
-    every leaf's gradient within tests/test_torch_train.py's TOL (atol and
-    rtol 2e-3); S = 70 leaves a ragged last chunk for both scans.  So they
-    do under each remat mode, where the backward reruns each layer's
-    forward (its kernels twice a step) and the scans' autograd Functions
-    keep their checkpoints only through the rerun.  Then K1, whose decode
-    needs no backward, still refuses grad mode."""
+                     dops, batch=2, seq=70,
+                     archs=("rwkv6-1.6b", "jamba-1.5-large-398b")):
+    """The smoke models' gradients on the card: by default rwkv6 smoke (K4
+    and its backward) and jamba smoke (K3 and its backward, K2 and its
+    backward) in f32, from the same params and batch as on the CPU, give
+    the loss and every leaf's gradient within tests/test_torch_train.py's
+    TOL (atol and rtol 2e-3); S = 70 leaves a ragged last chunk for both
+    scans.  So they do under each remat mode, where the backward reruns
+    each period's forward (its kernels twice a step; prefix blocks, such as
+    deepseek's dense first layer, once) and the scans' autograd Functions
+    keep their checkpoints only through the rerun.  Then, given
+    ``dops``, K1, whose decode needs no backward, still refuses grad mode."""
     out = {}
-    for arch in ("rwkv6-1.6b", "jamba-1.5-large-398b"):
+    for arch in archs:
         cfg = dataclasses.replace(get_arch(arch).smoke, param_dtype="float32",
                                   compute_dtype="float32")
         params = api.init_params(torch.Generator().manual_seed(0), cfg)
@@ -1728,8 +1810,9 @@ def phase_grad_check(torch, device, api, adamw, get_arch, pipeline, kernels,
         cpu_loss, cpu_grads = _loss_and_grads(torch, api, adamw, cfg, params,
                                               {"tokens": tokens})
         kinds = cfg.layer_kinds()
-        n_ssm, n_attn = kinds.count("ssm"), kinds.count("attn")
-        n_rwkv = cfg.num_layers if cfg.rwkv is not None else 0
+        # the prefix blocks (deepseek's dense first layer) run without remat,
+        # as the reference's: only the periods' forwards run again
+        periods = kinds[cfg.moe.first_k_dense if cfg.moe else 0:]
         card_params = _to(torch, params, device)
         out[cfg.name] = {}
         for remat in ("none", "dots", "full"):
@@ -1738,11 +1821,15 @@ def phase_grad_check(torch, device, api, adamw, get_arch, pipeline, kernels,
                 torch, api, adamw, cfg, card_params,
                 {"tokens": tokens.to(device)}, remat=remat)
             launches = launches_of(kernels)
-            fwd = 1 if remat == "none" else 2
-            want = {"rwkv6_scan": fwd * n_rwkv, "rwkv6_scan_bwd": n_rwkv,
-                    "ssm_scan": fwd * n_ssm, "ssm_scan_bwd": n_ssm,
-                    "flash_attention": fwd * n_attn,
-                    "flash_attention_bwd": n_attn}
+            def runs(kind):
+                return kinds.count(kind) + (periods.count(kind)
+                                            if remat != "none" else 0)
+
+            want = {"rwkv6_scan": runs("rwkv"),
+                    "rwkv6_scan_bwd": kinds.count("rwkv"),
+                    "ssm_scan": runs("ssm"), "ssm_scan_bwd": kinds.count("ssm"),
+                    "flash_attention": runs("attn"),
+                    "flash_attention_bwd": kinds.count("attn")}
             check(launches == {name: want.get(name, 0) for name in kernels}
                   and all(ops.ref.calls == 0 for ops in kernels.values()),
                   f"{cfg.name}'s gradient (remat {remat!r}) launched "
@@ -1766,6 +1853,8 @@ def phase_grad_check(torch, device, api, adamw, get_arch, pipeline, kernels,
             out[cfg.name][remat] = dict(loss=(loss, cpu_loss), worst_err=worst,
                                         worst_leaf=worst_path,
                                         launches=launches)
+    if dops is None:
+        return out
     q = torch.randn(1, 2, 16, device=device, requires_grad=True)
     kv = torch.randn(1, 2, 8, 16, device=device)
     msg = ""
@@ -2741,6 +2830,17 @@ def main(argv=None) -> int:
     count, n_wait, _ = mla_k2.get("HGMMA", (0, 0, ""))
     check(0 < n_wait < count, "flash_attention: wgmma_kernel<192,128> holds "
           f"{count} HGMMA, {n_wait} with gsb0 (all of them: serialized)")
+    # and its backward's: two warpgroups of 20 products each in the dK/dV
+    # kernel, 12 + 8 and 12 in the dQ kernel; neither spills
+    bwd_ptxas = dict(ptxas.get("flash_attention_bwd", ()))
+    for kernel in ("wg_dkdv_kernel<192,128>", "wg_dq_kernel<192,128>"):
+        count, n_wait, _ = sass["flash_attention_bwd"].get(kernel, {}).get(
+            "HGMMA", (0, 0, ""))
+        check(0 < n_wait < count, f"flash_attention_bwd: {kernel} holds "
+              f"{count} HGMMA, {n_wait} with gsb0 (all of them: serialized)")
+        check(bwd_ptxas.get(kernel, "").endswith(" 0 bytes spill stores"),
+              f"flash_attention_bwd: ptxas reports {kernel}: "
+              f"{bwd_ptxas.get(kernel, 'nothing')}")
     card = gpu_name_and_power_limit()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
@@ -2849,6 +2949,10 @@ def main(argv=None) -> int:
     for hd, dtype in ((30, "float32"), (36, "bfloat16")):
         rows["flash_attention_bwd"].append(flash_bwd_case(
             torch, F, fops, bops, 2, 4, 2, 130, 130, hd, True, 0, dtype, gen))
+    # MLA's widths (192, 128) and the smoke's (24, 16); the first row is
+    # TRAIN_CARD's bf16 step (B 2, 128 heads, S 512)
+    mla_bwd = mla_bwd_rows(torch, F, fops, bops, gen)
+    rows["flash_attention_bwd"] += mla_bwd
     # phase 12's training shapes, bf16: seamless's encoder and cross layers
     # (non-causal, 512 frames and 512 tokens) and internvl2's (causal, 256
     # patches and 512 tokens)
@@ -3093,6 +3197,66 @@ def main(argv=None) -> int:
         torch, np, TRAIN_CARD, kernels, steps, train, adamw,
         {"ssm_scan": 1, "ssm_scan_bwd": 1}, n_steps=20, batch=2,
         dtype="bfloat16", arch="jamba-1.5-large-398b", model_cfg=TRAIN_CARD)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- training: deepseek-v2's MLA through K2 and its backward at (192,
+    # 128) ------------------------------------------------------------------
+    print("== train (f). deepseek-v2 smoke: every gradient on the card against "
+          "the CPU's (f32, K2 and its backward at (24, 16) on 3xTF32), under "
+          "each remat mode", flush=True)
+    grad_check_d = phase_grad_check(torch, device, api, adamw, get_arch,
+                                    pipeline, kernels, None,
+                                    archs=("deepseek-v2-236b",))
+    from repro_torch.configs.deepseek_v2_236b import TRAIN_CARD as DTRAIN
+    mla_k2 = {"flash_attention": 1, "flash_attention_bwd": 1}   # one layer
+    print(f"== train (g). {DTRAIN.name} cut to {DTRAIN.num_layers} layer "
+          "(TRAIN_CARD: MLA and the dense FFN at full width) in f32: one step "
+          "of B 1 x 256 on the card and on the CPU from the same params",
+          flush=True)
+    step_vs_cpu_d = phase_train_step_vs_cpu(
+        torch, dataclasses.replace(DTRAIN, param_dtype="float32",
+                                   compute_dtype="float32"),
+        device, kernels, steps, api, adamw, OptimizerConfig, pipeline, mla_k2,
+        batch=1, remat_modes=())
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"== train (h). {DTRAIN.name} TRAIN_CARD in bf16 through "
+          "launch/train.py's main: B 2 x 512, 20 steps", flush=True)
+    # at the trainer's default lr of 3e-4 the bf16 weights of this model
+    # spike (to a loss of 19 at step 7 on an H100, where f32 falls): 1e-4
+    trained_d = phase_train(
+        torch, np, DTRAIN, kernels, steps, train, adamw, mla_k2, n_steps=20,
+        batch=2, dtype="bfloat16", arch="deepseek-v2-236b", model_cfg=DTRAIN,
+        lr=1e-4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("== 13e. the count against the card: deepseek-v2 TRAIN_CARD bf16 "
+          "train step 2 x 512", flush=True)
+    dtp = api.init_params(torch.Generator(device=device).manual_seed(0),
+                          DTRAIN)
+    d_opt = OptimizerConfig()
+    da = DTRAIN.attention
+    d_hd = da.qk_nope_head_dim + da.qk_rope_head_dim
+    d_args = (dtp, adamw.init_opt_state(dtp, d_opt),
+              {"tokens": _prompts(torch, np, DTRAIN, device, 2, 512)})
+    cost_cells.append(phase_cost_cell(
+        torch, "deepseek-v2 TRAIN_CARD train 2 x 512", DTRAIN,
+        ShapeConfig("train", 512, 2, "train"),
+        steps.make_train_step(DTRAIN, d_opt, remat="none"), d_args, kernels,
+        want=("flash_attention", "flash_attention_bwd"),
+        scratch=bops.scratch_bytes(
+            torch.empty(2, da.num_heads, 512, d_hd, dtype=torch.bfloat16,
+                        device="meta"),
+            torch.empty(2, da.num_kv_heads, 512, d_hd, dtype=torch.bfloat16,
+                        device="meta"), sms, hd_v=da.v_head_dim)))
+    trained_d["head_ms"] = head_device_ms(torch, DTRAIN, dtp, 2, 512)
+    check(trained_d["head_ms"] > 0, "the head's time was not measured")
+    print(f"  the head and its cross-entropy at that step's shape (forward "
+          f"and backward, profiled alone): {trained_d['head_ms']:.3f} ms "
+          f"device against the profiled step's {trained_d['device_ms']:.2f}",
+          flush=True)
+    del dtp, d_args
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3387,6 +3551,14 @@ def main(argv=None) -> int:
         "shape", "dtype", "max_abs_err", "ms", "wall_ms", "plain_ms",
         "bound_ms", "bound_by", "library_ms")}
     k2_row["mla"]["launches"] = k2_mla_launches
+    # K2's backward at MLA's widths (bf16, TRAIN_CARD's step), launched
+    # once a step of train (h)
+    bwd_row = next(r for r in kernel_rows
+                   if r["name"] == "flash_attention_bwd")
+    bwd_row["mla"] = {key: mla_bwd[0][key] for key in (
+        "shape", "dtype", "max_abs_err", "ms", "wall_ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms", "design_bound_ms")}
+    bwd_row["mla"]["launches"] = trained_d["launches"]["flash_attention_bwd"]
     # phase 12's shapes (bf16), each with its launches in phase 12's run
     row_of = {r["name"]: r for r in kernel_rows}
     for name, key, launches_12 in (
@@ -3421,7 +3593,9 @@ def main(argv=None) -> int:
              "train_bf16": trained_bf16,
              "grad_check": grad_check, "train_step_vs_cpu_rwkv": step_vs_cpu_r,
              "mixer_vs_cpu": mixer_vs_cpu, "train_rwkv": trained_r,
-             "train_jamba": trained_j,
+             "train_jamba": trained_j, "grad_check_deepseek": grad_check_d,
+             "train_step_vs_cpu_deepseek": step_vs_cpu_d,
+             "train_deepseek": trained_d,
              "serve_rwkv": served_r, "profile_rwkv": prof_r,
              "prefill_rwkv": pre_r, "server_solo_err_rwkv": solo_err,
              "jamba": {"params": n_params, "gbytes": gbytes, "init_s": init_s,

@@ -22,6 +22,9 @@ own ``build/``).  For that tree it prints, and writes to ``--out``:
 * a SHA-256 digest of the outputs of K2's backward (flash attention, B 4,
   H 16, S 512, hd 64, causal, f32 and bf16) and of both scans' backwards
   on seeded inputs: equal digests mean equal bits;
+* K2's backward at MLA's widths (bf16, B 2, H 128, S 512, hd 192, hd_v
+  128, causal: deepseek TRAIN_CARD's step): device ms a call, µs a launch
+  and its digest (or the refusal of a checkout that does not take them);
 * the absorbed MLA decode (``mla_decode``, H 128, L 512, R 64) in bf16 at
   ``chip_smoke.py``'s main shape (B 4 over a 32k cache, kv_len 4096 ...
   32768), the same keys in rows of one length ([15360] x 4), the served
@@ -210,6 +213,24 @@ def scan_rows(torch, kops, kbops, sops, sbops, fops, bops, rows,
     ckpt = sops.ssm_scan_fwd(*ssm)[2]
     digests["k3_bwd_bf16"] = digest(torch, sbops.ssm_scan_bwd(
         *ssm, dy, dh, ckpt=ckpt))
+    # K2's backward at MLA's widths, bf16, at deepseek TRAIN_CARD's step (B
+    # 2, H 128, S 512, hd 192, hd_v 128, causal): time and bits; a checkout
+    # whose backward does not take the widths records its refusal
+    q, k = (torch.randn(2, 128, 512, 192, device="cuda", generator=g).to(bf)
+            for _ in range(2))
+    v, do = (torch.randn(2, 128, 512, 128, device="cuda", generator=g).to(bf)
+             for _ in range(2))
+    out, lse = fops.flash_attention_fwd(q, k, v, causal=True)
+    fn = lambda: bops.flash_attention_bwd(q, k, v, out, lse, do,  # noqa
+                                          causal=True)
+    try:
+        digests["k2_bwd_mla_bf16"] = digest(torch, fn())
+    except ValueError as e:
+        digests["k2_bwd_mla_bf16"] = f"refused: {e}"
+    else:
+        ms, wall = cs.time_ms(torch, fn)
+        rows["k2_bwd_mla_bf16"] = dict(ms=ms, wall_ms=wall,
+                                       launch_us=cs.launch_us(torch, fn))
 
 
 if __name__ == "__main__":

@@ -13,6 +13,17 @@ kv_lora_rank 512, nope 128, rope 64, v 128, vocab 102400.  Its weights come
 to about 13.3 B parameters, 26.6 GB in bf16 (embedding and untied head
 1.05 B, MLA 149 M a layer, the dense FFN 189 M, an MoE FFN 3.82 B).  What is
 lost is the depth: 4 of 60 layers.
+
+``TRAIN_CARD`` is the configuration trained on one 80 GB card: ``FULL`` cut
+to its first layer (MLA and the dense SwiGLU FFN of d_ff 12288) at every
+published width, not registered.  Its weights come to 1,386,562,560
+parameters: embedding and untied head 1.049 B, MLA 149 M, the dense FFN
+189 M; in bf16 with AdamW's f32 moments about 16.6 GB (params 2.8 GB,
+gradients 2.8 GB, moments 11.1 GB) before activations.  Two layers (the
+dense one and an MoE layer) come to 5.36 B parameters, about 64 GB before
+any activation, so they do not train with margin on one card.  What is
+lost is the MoE layers (the MoE FFN trains at smoke size only) and the
+depth: 1 of 60 layers.
 """
 from dataclasses import replace
 
@@ -56,6 +67,8 @@ SMOKE = ModelConfig(
 
 # the first 4 layers at full width, bf16: what one 80 GB card serves
 CARD = replace(FULL, num_layers=4)
+# the first layer at full width: what one 80 GB card trains
+TRAIN_CARD = replace(FULL, num_layers=1)
 
 
 @register_arch("deepseek-v2-236b")

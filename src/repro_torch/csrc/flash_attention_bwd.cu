@@ -1,5 +1,9 @@
 // Flash-attention backward for Hopper (sm_90a): dQ, dK and dV of softmax
-// attention, causal or not, with a query offset and grouped KV heads.
+// attention, causal or not, with a query offset and grouped KV heads.  Q
+// and K are hd wide, V, O and dO hd_v wide, in the forward's pairs: hd_v <=
+// hd, both in one 64-wide class up to 128, or hd in (128, 192] with hd_v in
+// (64, 128] (MLA's expanded attention trains at hd 192, hd_v 128); the
+// scale is 1 / sqrt(hd).
 //
 // A new kernel, not a port: the Pallas TPU kernel
 // src/repro/kernels/flash_attention/kernel.py (_flash_kernel) is forward-only
@@ -16,13 +20,16 @@
 //   dQ = dS K / sqrt(hd),  dK = dS^T Q / sqrt(hd)
 //
 // What bounds it on this card.  Five products of the forward's size (S and
-// dP recomputed, dV, dQ, dK): about 10 * B * Hq * pairs * hd FLOPs, where
-// pairs counts the visible (query, key) pairs, on 8 tensors of q's or k's
-// size read or written.  At the training shape (B 4, Hq 16, S 512, hd 64,
-// causal) that is 5.4 GFLOP on 34 MB (bf16) or 67 MB (f32): in bf16 on
-// wgmma the bytes bind (10 µs against 5.4 µs of products at 989 TFLOP/s);
-// in f32, as three TF32 products (495 / 3 TFLOP/s), the operations (33 µs
-// against 20 µs of bytes).
+// dP recomputed, dV, dQ, dK): 2 * B * Hq * pairs * (3 hd + 2 hd_v) FLOPs,
+// where pairs counts the visible (query, key) pairs, on 8 tensors of q's,
+// k's or v's size read or written.  At qwen's training shape (B 4, Hq 16,
+// S 512, hd 64, causal) that is 5.4 GFLOP on 34 MB (bf16) or 67 MB (f32):
+// in bf16 on wgmma the bytes bind (10 µs against 5.4 µs of products at 989
+// TFLOP/s); in f32, as three TF32 products (495 / 3 TFLOP/s), the
+// operations (33 µs against 20 µs of bytes).  At deepseek's (B 2, Hq 128,
+// S 512, hd 192, hd_v 128, causal, bf16) the bytes bind too: 336 MB in 0.100
+// ms against 0.057 ms of products.  The kernels run seven products (S and
+// dP in both passes): 2 * B * Hq * pairs * (4 hd + 3 hd_v).
 //
 // Three launches a call, deterministic (no atomics, a fixed order of sums):
 //
@@ -48,8 +55,10 @@
 //
 // Three routes for the two products kernels, chosen by the caller (bwd.py):
 //
-//  * bf16, hd a multiple of 8 (the TMA rows): wgmma.  One warpgroup a
-//    block.  Tiles of 64 rows by 64 columns arrive by TMA, 128-byte swizzle
+//  * bf16, hd and hd_v multiples of 8 (the TMA rows): wgmma.  One
+//    warpgroup a block up to hd 128; at hd 192 the dK/dV block is two
+//    warpgroups that split its products (wg_dkdv_kernel says why and
+//    how).  Tiles of 64 rows by 64 columns arrive by TMA, 128-byte swizzle
 //    (the forward's maps), the walked tiles through a ring of two stages
 //    with mbarriers.  The dK/dV block computes the scores transposed, S^T =
 //    K Q^T and dP^T = V dO^T (wgmma SS), so that P^T and dS^T land in the
@@ -57,7 +66,8 @@
 //    of dV += P^T dO and dK += dS^T Q (wgmma RS, B MN-major through the
 //    descriptor), as the forward feeds P to P V.  The dQ block does the
 //    same with S = Q K^T, dP = dO V^T and dQ += dS K.
-//  * f32, hd a multiple of 4 up to 64: the tensor cores in 3xTF32.  Each
+//  * f32, hd and hd_v multiples of 4 up to 64: the tensor cores in 3xTF32
+//    (V and dO zero-padded to hd's 64 columns).  Each
 //    operand x is split into hi = tf32(x) and lo = tf32(x - hi)
 //    (cvt.rna), and each product is lo*hi + hi*lo + hi*hi in mma.sync
 //    m16n8k8 with f32 accumulation: about 2^-21 relative per product, where
@@ -72,9 +82,9 @@
 //    a thread's dK and dV took 128 registers, spilled, and one block filled
 //    an SM's shared memory: it ran slower than the CUDA cores (PERF.md), so
 //    f32 above hd 64 takes those and only HD = 64 is launched;
-//  * the other dtype and hd: the CUDA cores, f32 accumulation: tiles as f32
-//    rows of hd + 4 in shared memory, each of 256 threads a 4 x 4 tile of S
-//    and dP.
+//  * the other dtypes and widths: the CUDA cores, f32 accumulation: tiles
+//    as f32 rows of hd + 4 (Q, K) and hd_v + 4 (V, dO) in shared memory
+//    (203 KB at (192, 128)), each of 256 threads a 4 x 4 tile of S and dP.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -96,6 +106,13 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
 __device__ __forceinline__ float pick(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+// Named barrier `id` over `threads` threads: wait for all, or arrive only
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -172,42 +189,65 @@ cudaError_t launch_dot(const void* o, const void* dout, float* delta, int rows, 
 // A tile's walk split over gridDim.z blocks
 // ---------------------------------------------------------------------------
 
-// Where a tile's walk is split, each of the tile's blocks (128 threads)
-// leaves its F f32 partial sums a thread (element f of thread t at
-// [f * 128 + t]) in its slot of the tile's scratch; the last block of the
-// tile to arrive (one int counter a tile, which it leaves at 0) adds the
-// slots in split order, so the result does not depend on which block
-// finished last.  `at(f)` is this thread's element f (a constant index once
-// unrolled, so the accumulators stay in registers); the sums go 16 elements
-// at a time, which bounds the loads in flight.  Returns whether this block
-// holds the sum.
+// Where a tile's walk is split, each of the tile's blocks leaves its f32
+// partial sums in its slot of the tile's scratch (`slot` floats a split,
+// from `part`); the last block of the tile to arrive (one int counter a
+// tile, which it leaves at 0) adds the slots in split order, so the result
+// does not depend on which block finished last.  A warpgroup whose threads
+// hold F sums each keeps element f of its thread t at [f * 128 + t] of its
+// region of the slot.  `at(f)` is this thread's element f (a constant index
+// once unrolled, so the accumulators stay in registers); the sums go 16
+// elements at a time, which bounds the loads in flight.
 template <int F, typename At>
-__device__ __forceinline__ bool combine_splits(At&& at, float* part, int* counter) {
-  constexpr int n = 128, kChunk = 16;
-  static_assert(F % kChunk == 0, "whole chunks");
-  const int tid = threadIdx.x;
-  float* slot = part + (size_t)blockIdx.z * F * n;
+__device__ __forceinline__ void store_split(At&& at, float* part, size_t slot, int t) {
+  float* s = part + (size_t)blockIdx.z * slot;
 #pragma unroll
-  for (int f = 0; f < F; ++f) slot[f * n + tid] = at(f);
+  for (int f = 0; f < F; ++f) s[f * 128 + t] = at(f);
+}
+
+// Whether this block is the last of its tile's to arrive, once all of its
+// `threads` threads have stored their partial sums (named barrier `id`, so
+// that a kernel whose warpgroups run code of their own can call it from
+// each); resets the tile's counter.  `flag`: one int of shared memory.
+__device__ __forceinline__ bool last_split(int* counter, int* flag, int id, int threads) {
   __threadfence();
-  __syncthreads();
-  __shared__ int last;
-  if (tid == 0) last = atomicAdd(counter, 1) == (int)gridDim.z - 1;
-  __syncthreads();
-  if (!last) return false;
+  named_sync(id, threads);
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(counter, 1) == (int)gridDim.z - 1;
+    if (*flag) *counter = 0;  // every block of the tile has counted
+  }
+  named_sync(id, threads);
+  if (!*flag) return false;
   __threadfence();
+  return true;
+}
+
+template <int F, typename At>
+__device__ __forceinline__ void sum_splits(At&& at, const float* part, size_t slot, int t) {
+  constexpr int kChunk = 16;
+  static_assert(F % kChunk == 0, "whole chunks");
 #pragma unroll
   for (int c = 0; c < F; c += kChunk) {
 #pragma unroll
     for (int f = c; f < c + kChunk; ++f) at(f) = 0.f;
 #pragma unroll 1
     for (int z = 0; z < (int)gridDim.z; ++z) {
-      const float* p = part + (size_t)z * F * n + tid;
+      const float* p = part + (size_t)z * slot + t;
 #pragma unroll
-      for (int f = c; f < c + kChunk; ++f) at(f) += __ldcg(p + f * n);
+      for (int f = c; f < c + kChunk; ++f) at(f) += __ldcg(p + f * 128);
     }
   }
-  if (tid == 0) *counter = 0;
+}
+
+// The three steps for a block of one warpgroup (128 threads, F sums each,
+// a slot of F * 128 floats).  Returns whether this block holds the sum.
+template <int F, typename At>
+__device__ __forceinline__ bool combine_splits(At&& at, float* part, int* counter) {
+  __shared__ int last;
+  const size_t slot = (size_t)F * 128;
+  store_split<F>(at, part, slot, threadIdx.x);
+  if (!last_split(counter, &last, 0, 128)) return false;
+  sum_splits<F>(at, part, slot, threadIdx.x);
   return true;
 }
 
@@ -215,12 +255,29 @@ __device__ __forceinline__ bool combine_splits(At&& at, float* part, int* counte
 // bf16: wgmma + TMA
 // ---------------------------------------------------------------------------
 
+// hd or hd_v rounded up to the kernels' classes: 64, 128, or 192 (hd only)
+__host__ __device__ constexpr int width_class(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 192; }
+
+// The dK/dV kernel runs two warpgroups where one cannot hold dK, dV and the
+// scores in registers (hd above 128)
 template <int HD>
+__host__ __device__ constexpr int dkdv_threads() {
+  return HD > 128 ? 256 : 128;
+}
+
+template <int N>
+struct Slices {
+  static constexpr int value = N;
+};
+
+template <int HD, int HDV>
 constexpr int wg_smem_bytes() {
-  // six (64, HD) bf16 tiles (dK/dV: K, V and two stages of Q, dO; dQ: Q, dO
-  // and two stages of K, V), lse and D of two stages, three mbarriers, and
-  // slack for 1024-byte alignment
-  return (HD / 64) * kSlice * 2 * 6 + 4 * kTile * 4 + 8 * 3 + 1024;
+  // dK/dV: K, V and two stages of Q, dO; dQ: Q, dO and two stages of K, V:
+  // three (64, HD) and three (64, HDV) bf16 tiles; lse and D of two
+  // stages, four mbarrier slots, the two-warpgroup dK/dV kernel's P^T
+  // (64 x 64 f32), and slack for 1024-byte alignment
+  return (HD / 64 + HDV / 64) * kSlice * 2 * 3 + 4 * kTile * 4 + 8 * 4 +
+         (dkdv_threads<HD>() == 256 ? kTile * kTile * 4 : 0) + 1024;
 }
 
 __device__ __forceinline__ bf16* align1024(unsigned char* p) {
@@ -228,31 +285,48 @@ __device__ __forceinline__ bf16* align1024(unsigned char* p) {
                                  ~static_cast<uintptr_t>(1023));
 }
 
-// One block, one warpgroup: keys [k0, k0 + 64) of KV head (b, hk) =
-// blockIdx.x, k0 = 64 blockIdx.y.  Maps: q, dout (hd, Sq, B * Hq); k, v
-// (hd, Sk, B * Hkv); boxes (64, 64, 1).  Work item i is query tile
-// first + i % per_head of the group's query head i / per_head.
-template <int HD>
-__global__ void __launch_bounds__(128)
+// dK and dV of keys [k0, k0 + 64) of KV head (b, hk) = blockIdx.x, k0 =
+// 64 blockIdx.y.  Maps: q (hd, Sq, B * Hq), dout (hd_v, Sq, B * Hq); k (hd,
+// Sk, B * Hkv), v (hd_v, Sk, B * Hkv); boxes (64, 64, 1).  Work item i is
+// query tile first + i % per_head of the group's query head i / per_head.
+//
+// Up to hd 128 one warpgroup does all of it: S^T and dP^T, then dV += P^T
+// dO and dK += dS^T Q, with dK, dV, S^T and dP^T in registers (192 f32 a
+// thread at hd 128).  At hd 192, hd_v 128 that would be 224 before the
+// bf16 operands, past the 255 a thread may hold, so two warpgroups split
+// the work by product, 20 wgmmas each: warpgroup 0 takes S^T = K Q^T (12
+// k steps over hd), forms P^T, hands it over in shared memory (f32, in its
+// accumulator layout, which warpgroup 1's dP^T shares) and accumulates dV
+// += P^T dO; warpgroup 1 takes dP^T = V dO^T (8 k steps over hd_v), forms
+// dS^T = P^T (dP^T - D) and accumulates dK += dS^T Q.  Each warpgroup's
+// loop and epilogue are code of its own, so that its registers hold its
+// own accumulator alone (96 f32 of dK or 64 of dV, with 32 of scores);
+// named barriers order the hand-off (2) and the end of each item (1).
+template <int HD, int HDV>
+__global__ void __launch_bounds__(dkdv_threads<HD>())
 wg_dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
                const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
                const float* __restrict__ lse, const float* __restrict__ delta,
                bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ part,
-               int* __restrict__ counters, int Hq, int Hkv, int Sq, int Sk, int hd, int causal,
-               int q_offset, float scale, float scale_log2) {
+               int* __restrict__ counters, int Hq, int Hkv, int Sq, int Sk, int hd, int hd_v,
+               int causal, int q_offset, float scale, float scale_log2) {
   constexpr int NS = HD / 64;                       // 64-column slices of hd
-  constexpr uint32_t kTileBytes = NS * kSlice * 2;  // one tile
+  constexpr int NSV = HDV / 64;                     // and of hd_v
+  constexpr int kThreads = dkdv_threads<HD>();
+  constexpr uint32_t kKBytes = NS * kSlice * 2;     // a Q or K tile
+  constexpr uint32_t kVBytes = NSV * kSlice * 2;    // a dO or V tile
   extern __shared__ unsigned char smem_raw[];
   bf16* Ks = align1024(smem_raw);
   bf16* Vs = Ks + NS * kSlice;
-  bf16* QO = Vs + NS * kSlice;                      // stage s: Q at 2s NS, dO after it
-  float* Ls = reinterpret_cast<float*>(QO + 4 * NS * kSlice);  // [2][64], log2 units
-  float* Dl = Ls + 2 * kTile;                                  // [2][64]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(Dl + 2 * kTile);  // k/v, full[2]
+  bf16* QO = Vs + NSV * kSlice;                     // stage s: Q at s (NS + NSV), dO after it
+  float* Ls = reinterpret_cast<float*>(QO + 2 * (NS + NSV) * kSlice);  // [2][64], log2 units
+  float* Dl = Ls + 2 * kTile;                                          // [2][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Dl + 2 * kTile);        // k/v, full[2]
+  float* Pt = reinterpret_cast<float*>(bars + 4);   // P^T handed over: [32][128]
 
   const int kvbh = blockIdx.x, b = kvbh / Hkv, hk = kvbh % Hkv, group = Hq / Hkv;
   const int k0 = blockIdx.y * kTile;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, wg = tid / 128, t = tid % 128, warp = t / 32, lane = tid % 32;
   // queries before k0 - q_offset see none of these keys
   const int first = causal ? max(0, k0 - q_offset) / kTile : 0;
   const int per_head = max(0, (Sq + kTile - 1) / kTile - first);
@@ -264,22 +338,33 @@ wg_dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
   auto q0_of = [&](int i) { return (first + i % per_head) * kTile; };
 
   auto issue = [&](int i, int stage) {
-    bf16* Qs = QO + stage * 2 * NS * kSlice;
+    bf16* Qs = QO + stage * (NS + NSV) * kSlice;
     bf16* dOs = Qs + NS * kSlice;
-    mbar_expect_tx(&bars[1 + stage], 2 * kTileBytes);
+    mbar_expect_tx(&bars[1 + stage], kKBytes + kVBytes);
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
+    for (int s = 0; s < NS; ++s)
       tma_load_3d(Qs + s * kSlice, &qmap, &bars[1 + stage], s * 64, q0_of(i), bh_of(i));
+#pragma unroll
+    for (int s = 0; s < NSV; ++s)
       tma_load_3d(dOs + s * kSlice, &domap, &bars[1 + stage], s * 64, q0_of(i), bh_of(i));
-    }
   };
-  // threads 0-63: the lse (log2 units) of item i's row tid; 64-127: its D
-  auto row_stat = [&](int i) {
-    const int r = q0_of(i) + tid % 64;
-    const size_t at = (size_t)bh_of(i) * Sq + r;
-    if (tid < 64) return r < Sq ? lse[at] * kLog2e : INFINITY;
-    return r < Sq ? delta[at] : 0.f;
+  // item i's row r of the 64: its lse (log2 units) or its D
+  auto lse_of = [&](int i, int r) {
+    const int row = q0_of(i) + r;
+    return row < Sq ? lse[(size_t)bh_of(i) * Sq + row] * kLog2e : INFINITY;
   };
+  auto delta_of = [&](int i, int r) {
+    const int row = q0_of(i) + r;
+    return row < Sq ? delta[(size_t)bh_of(i) * Sq + row] : 0.f;
+  };
+  // the lse and D of item i as this thread loads them: with one warpgroup
+  // threads 0-63 the lse of row tid, 64-127 the D of row tid - 64; with two
+  // each warpgroup's first 64 threads, the lse (0) or D (1) of row t
+  const bool loads_lse = kThreads == 256 ? wg == 0 : tid < 64;
+  const int stat_row = kThreads == 256 ? t : tid % 64;
+  const bool loads_stat = kThreads == 256 ? t < 64 : true;
+  auto row_stat = [&](int i) { return loads_lse ? lse_of(i, stat_row) : delta_of(i, stat_row); };
+  float* stat_dst = loads_lse ? Ls : Dl;
 
   if (tid == 0) {
 #pragma unroll
@@ -288,134 +373,270 @@ wg_dkdv_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&bars[0], 2 * kTileBytes);
+    mbar_expect_tx(&bars[0], kKBytes + kVBytes);
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      tma_load_3d(Ks + s * kSlice, &kmap, &bars[0], s * 64, k0, kvbh);
-      tma_load_3d(Vs + s * kSlice, &vmap, &bars[0], s * 64, k0, kvbh);
-    }
+    for (int s = 0; s < NS; ++s) tma_load_3d(Ks + s * kSlice, &kmap, &bars[0], s * 64, k0, kvbh);
+#pragma unroll
+    for (int s = 0; s < NSV; ++s) tma_load_3d(Vs + s * kSlice, &vmap, &bars[0], s * 64, k0, kvbh);
     if (i0 < i1) issue(i0, 0);
   }
-  if (i0 < i1) (tid < 64 ? Ls : Dl)[tid % 64] = row_stat(i0);
+  if (i0 < i1 && loads_stat) stat_dst[stat_row] = row_stat(i0);
   __syncthreads();
 
   // this thread's key rows of the 64: r and r + 8; its query columns of
   // each 8-column block j: 8j + cq + {0, 1}
   const int r = warp * 16 + lane / 4, cq = 2 * (lane % 4);
-  float dka[NS][32], dva[NS][32];
-#pragma unroll
-  for (int s = 0; s < NS; ++s)
-#pragma unroll
-    for (int e = 0; e < 32; ++e) dka[s][e] = dva[s][e] = 0.f;
-
+  const int tile = blockIdx.x * gridDim.y + blockIdx.y;
+  // the tile's scratch: a slot of dK (64 x HD) then dV (64 x HDV) a split
+  const size_t slot = (size_t)kTile * (HD + HDV);
+  float* tile_part = part + (size_t)tile * gridDim.z * slot;
+  const size_t base = (size_t)kvbh * Sk;
   mbar_wait(&bars[0], 0);
-  for (int i = i0; i < i1; ++i) {
-    const int stage = (i - i0) & 1;
-    // the other stage was last read in item i - 1, which every thread has
-    // finished (the __syncthreads at the end of the loop)
-    if (tid == 0 && i + 1 < i1) issue(i + 1, stage ^ 1);
-    const float next = i + 1 < i1 ? row_stat(i + 1) : 0.f;
-    mbar_wait(&bars[1 + stage], ((i - i0) >> 1) & 1);
-    const bf16* Qs = QO + stage * 2 * NS * kSlice;
-    const bf16* dOs = Qs + NS * kSlice;
-    const float* L = Ls + stage * kTile;
-    const float* Dr = Dl + stage * kTile;
 
-    float st[32], dpt[32];
+  // S^T = K Q^T (hd / 16 k steps) or dP^T = V dO^T (hd_v / 16): A and B
+  // tiles of nk slices, one group of products
+  auto product = [&](float* acc, const bf16* A, const bf16* B, auto nk) {
 #pragma unroll
-    for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.f;
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < decltype(nk)::value * 4; ++kk) {
       const int off = (kk / 4) * kSlice + (kk % 4) * 16;  // 32 bytes a k step, then the next slice
-      wgmma_ss(st, desc_sw128(Ks + off, 16, 1024), desc_sw128(Qs + off, 16, 1024), kk > 0);
-      wgmma_ss(dpt, desc_sw128(Vs + off, 16, 1024), desc_sw128(dOs + off, 16, 1024), kk > 0);
+      wgmma_ss(acc, desc_sw128(A + off, 16, 1024), desc_sw128(B + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(st);
-    fence_regs(dpt);
-
-    // P^T and dS^T in place; masks only on a tile that crosses the
-    // diagonal (keys past Sk give rows of dK, dV that are not stored;
-    // queries past Sq have lse = +inf, so P = 0 there)
-    const int q0 = q0_of(i);
+    fence_regs(acc);
+  };
+  // P^T in place of S^T (masks only on a tile that crosses the diagonal;
+  // keys past Sk give rows of dK, dV that are not stored; queries past Sq
+  // have lse = +inf, so P = 0 there)
+  auto probs = [&](float* st, const float* L, int q0) {
     const bool edge = causal && k0 + kTile - 1 > q_offset + q0;
-    uint32_t pa[4][4], sa[4][4];  // P^T and dS^T as A operands, one 16-query step each
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 l2 = *reinterpret_cast<const float2*>(L + 8 * j + cq);
-      const float2 d2 = *reinterpret_cast<const float2*>(Dr + 8 * j + cq);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const float lc = c ? l2.y : l2.x, dc = c ? d2.y : d2.x;
         const int qpos = q_offset + q0 + 8 * j + cq + c;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int e = 4 * j + 2 * h + c;
-          float p = ex2(fmaf(st[e], scale_log2, -lc));
+          float p = ex2(fmaf(st[e], scale_log2, -(c ? l2.y : l2.x)));
           if (edge && qpos < k0 + r + 8 * h) p = 0.f;
           st[e] = p;
-          dpt[e] = p * (dpt[e] - dc);
         }
       }
-      pa[j / 2][(j % 2) * 2] = pack_bf16(st[4 * j], st[4 * j + 1]);
-      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(st[4 * j + 2], st[4 * j + 3]);
-      sa[j / 2][(j % 2) * 2] = pack_bf16(dpt[4 * j], dpt[4 * j + 1]);
-      sa[j / 2][(j % 2) * 2 + 1] = pack_bf16(dpt[4 * j + 2], dpt[4 * j + 3]);
     }
-
+  };
+  // dS^T = P^T (dP^T - D) in place of dP^T
+  auto dscores = [&](float* dpt, const float* pt, const float* Dr) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(Dr + 8 * j + cq);
+#pragma unroll
+      for (int e = 4 * j; e < 4 * j + 4; ++e) dpt[e] = pt[e] * (dpt[e] - (e & 1 ? d2.y : d2.x));
+    }
+  };
+  // a 64 x 64 f32 accumulator as four bf16 A operands of 16 queries each
+  auto pack = [&](uint32_t (&a)[4][4], const float* acc) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      a[j / 2][(j % 2) * 2] = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+      a[j / 2][(j % 2) * 2 + 1] = pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  };
+  // acc[s] += A B over the tile's 64 queries, B's slices s of a tile in
+  // shared memory (16 queries = 16 rows of 128 bytes a k step)
+  auto accumulate = [&](auto& acc, const uint32_t (&a)[4][4], const bf16* B) {
+    constexpr int N = sizeof(acc) / sizeof(acc[0]);
     wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < NS; ++s)
+    for (int s = 0; s < N; ++s)
 #pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {  // 16 queries = 16 rows of 128 bytes
-        wgmma_rs(dva[s], pa[kk], desc_sw128(dOs + s * kSlice + kk * 16 * 64, 64 * 128, 1024));
-        wgmma_rs(dka[s], sa[kk], desc_sw128(Qs + s * kSlice + kk * 16 * 64, 64 * 128, 1024));
-      }
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        wgmma_rs(acc[s], a[kk], desc_sw128(B + s * kSlice + kk * 16 * 64, 64 * 128, 1024));
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      fence_regs(dva[s]);
-      fence_regs(dka[s]);
-    }
-    // the other stage's lse and D were last read in item i - 1
-    if (i + 1 < i1) (tid < 64 ? Ls : Dl)[(stage ^ 1) * kTile + tid % 64] = next;
-    __syncthreads();
-  }
-  const int tile = blockIdx.x * gridDim.y + blockIdx.y;
-  if (gridDim.z > 1 &&
-      !combine_splits<2 * NS * 32>(
-          [&](int f) -> float& {
-            return f < NS * 32 ? dka[f / 32][f % 32] : dva[f / 32 - NS][f % 32];
-          },
-          part + (size_t)tile * gridDim.z * 2 * kTile * HD, counters + tile))
-    return;
-
-  const size_t base = (size_t)kvbh * Sk * hd;
+    for (int s = 0; s < N; ++s) fence_regs(acc[s]);
+  };
+  // rows of a (64, width) accumulator in slices of 64 columns, scaled, to
+  // out (rows of `width` elements from base)
+  auto store_rows = [&](const auto& acc, bf16* out, int width, float mul) {
+    constexpr int N = sizeof(acc) / sizeof(acc[0]);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = k0 + r + 8 * h;
-    if (key >= Sk) continue;
+    for (int h = 0; h < 2; ++h) {
+      const int key = k0 + r + 8 * h;
+      if (key >= Sk) continue;
 #pragma unroll
-    for (int s = 0; s < NS; ++s)
+      for (int s = 0; s < N; ++s)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = s * 64 + 8 * j + cq, e = 4 * j + 2 * h;
-        if (col < hd) {
-          *reinterpret_cast<__nv_bfloat162*>(dk + base + (size_t)key * hd + col) =
-              __floats2bfloat162_rn(dka[s][e] * scale, dka[s][e + 1] * scale);
-          *reinterpret_cast<__nv_bfloat162*>(dv + base + (size_t)key * hd + col) =
-              __floats2bfloat162_rn(dva[s][e], dva[s][e + 1]);
+        for (int j = 0; j < 8; ++j) {
+          const int col = s * 64 + 8 * j + cq, e = 4 * j + 2 * h;
+          if (col < width)
+            *reinterpret_cast<__nv_bfloat162*>(out + (base + key) * width + col) =
+                __floats2bfloat162_rn(acc[s][e] * mul, acc[s][e + 1] * mul);
         }
+    }
+  };
+
+  if constexpr (kThreads == 128) {
+    float dka[NS][32], dva[NSV][32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) dka[s][e] = 0.f;
+#pragma unroll
+      for (int s = 0; s < NSV; ++s) dva[s][e] = 0.f;
+    }
+    for (int i = i0; i < i1; ++i) {
+      const int stage = (i - i0) & 1;
+      // the other stage was last read in item i - 1, which every thread has
+      // finished (the __syncthreads at the end of the loop)
+      if (tid == 0 && i + 1 < i1) issue(i + 1, stage ^ 1);
+      const float next = i + 1 < i1 ? row_stat(i + 1) : 0.f;
+      mbar_wait(&bars[1 + stage], ((i - i0) >> 1) & 1);
+      const bf16* Qs = QO + stage * (NS + NSV) * kSlice;
+      const bf16* dOs = Qs + NS * kSlice;
+      float st[32], dpt[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.f;
+      wgmma_fence();  // S^T and dP^T, one group
+#pragma unroll
+      for (int kk = 0; kk < (NS > NSV ? NS : NSV) * 4; ++kk) {
+        const int off = (kk / 4) * kSlice + (kk % 4) * 16;
+        if (kk < NS * 4)
+          wgmma_ss(st, desc_sw128(Ks + off, 16, 1024), desc_sw128(Qs + off, 16, 1024), kk > 0);
+        if (kk < NSV * 4)
+          wgmma_ss(dpt, desc_sw128(Vs + off, 16, 1024), desc_sw128(dOs + off, 16, 1024), kk > 0);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      probs(st, Ls + stage * kTile, q0_of(i));
+      dscores(dpt, st, Dl + stage * kTile);
+      uint32_t pa[4][4], sa[4][4];  // P^T and dS^T as A operands
+      pack(pa, st);
+      pack(sa, dpt);
+      // dV += P^T dO and dK += dS^T Q, one group
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < (NS > NSV ? NS : NSV); ++s)
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk) {
+          if (s < NSV)
+            wgmma_rs(dva[s], pa[kk], desc_sw128(dOs + s * kSlice + kk * 16 * 64, 64 * 128, 1024));
+          if (s < NS)
+            wgmma_rs(dka[s], sa[kk], desc_sw128(Qs + s * kSlice + kk * 16 * 64, 64 * 128, 1024));
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int s = 0; s < NS; ++s) fence_regs(dka[s]);
+#pragma unroll
+      for (int s = 0; s < NSV; ++s) fence_regs(dva[s]);
+      // the other stage's lse and D were last read in item i - 1
+      if (i + 1 < i1) stat_dst[(stage ^ 1) * kTile + stat_row] = next;
+      __syncthreads();
+    }
+    if (gridDim.z > 1 &&
+        !combine_splits<(NS + NSV) * 32>(
+            [&](int f) -> float& {
+              return f < NS * 32 ? dka[f / 32][f % 32] : dva[f / 32 - NS][f % 32];
+            },
+            tile_part, counters + tile))
+      return;
+    store_rows(dka, dk, hd, scale);
+    store_rows(dva, dv, hd_v, 1.f);
+  } else {
+    __shared__ int last;
+    if (wg == 0) {
+      float dva[NSV][32];
+#pragma unroll
+      for (int s = 0; s < NSV; ++s)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dva[s][e] = 0.f;
+      for (int i = i0; i < i1; ++i) {
+        const int stage = (i - i0) & 1;
+        // the other stage was last read in item i - 1, which both
+        // warpgroups have finished (barrier 1 at the end of the loop)
+        if (tid == 0 && i + 1 < i1) issue(i + 1, stage ^ 1);
+        const float next = i + 1 < i1 && loads_stat ? row_stat(i + 1) : 0.f;
+        mbar_wait(&bars[1 + stage], ((i - i0) >> 1) & 1);
+        const bf16* Qs = QO + stage * (NS + NSV) * kSlice;
+        const bf16* dOs = Qs + NS * kSlice;
+        float st[32];
+        product(st, Ks, Qs, Slices<NS>());
+        probs(st, Ls + stage * kTile, q0_of(i));
+        // P^T to warpgroup 1: elements e..e + 3 of thread t at 128 e + 4 t
+#pragma unroll
+        for (int e = 0; e < 32; e += 4)
+          *reinterpret_cast<float4*>(Pt + e * 128 + 4 * t) =
+              make_float4(st[e], st[e + 1], st[e + 2], st[e + 3]);
+        named_arrive(2, 256);
+        uint32_t pa[4][4];
+        pack(pa, st);
+        accumulate(dva, pa, dOs);
+        if (i + 1 < i1 && loads_stat) Ls[(stage ^ 1) * kTile + t] = next;
+        named_sync(1, 256);
+      }
+      if (gridDim.z > 1) {
+        auto at = [&](int f) -> float& { return dva[f / 32][f % 32]; };
+        float* own = tile_part + (size_t)kTile * HD;  // dV after dK in each slot
+        store_split<NSV * 32>(at, own, slot, t);
+        if (!last_split(counters + tile, &last, 1, 256)) return;
+        sum_splits<NSV * 32>(at, own, slot, t);
+      }
+      store_rows(dva, dv, hd_v, 1.f);
+    } else {
+      float dka[NS][32];
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dka[s][e] = 0.f;
+      for (int i = i0; i < i1; ++i) {
+        const int stage = (i - i0) & 1;
+        const float next = i + 1 < i1 && loads_stat ? row_stat(i + 1) : 0.f;
+        mbar_wait(&bars[1 + stage], ((i - i0) >> 1) & 1);
+        const bf16* Qs = QO + stage * (NS + NSV) * kSlice;
+        const bf16* dOs = Qs + NS * kSlice;
+        float dpt[32];
+        product(dpt, Vs, dOs, Slices<NSV>());
+        named_sync(2, 256);  // P^T is in shared memory
+        float pt[32];
+#pragma unroll
+        for (int e = 0; e < 32; e += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(Pt + e * 128 + 4 * t);
+          pt[e] = p4.x;
+          pt[e + 1] = p4.y;
+          pt[e + 2] = p4.z;
+          pt[e + 3] = p4.w;
+        }
+        dscores(dpt, pt, Dl + stage * kTile);
+        uint32_t sa[4][4];
+        pack(sa, dpt);
+        accumulate(dka, sa, Qs);
+        if (i + 1 < i1 && loads_stat) Dl[(stage ^ 1) * kTile + t] = next;
+        named_sync(1, 256);
+      }
+      if (gridDim.z > 1) {
+        auto at = [&](int f) -> float& { return dka[f / 32][f % 32]; };
+        store_split<NS * 32>(at, tile_part, slot, t);
+        if (!last_split(counters + tile, &last, 1, 256)) return;
+        sum_splits<NS * 32>(at, tile_part, slot, t);
+      }
+      store_rows(dka, dk, hd, scale);
+    }
   }
 }
 
 // One block, one warpgroup: queries [q0, q0 + 64) of (b, h) = blockIdx.x,
-// tiles from the last (q0 = 64 (gridDim.y - 1 - blockIdx.y)).
-template <int HD>
+// tiles from the last (q0 = 64 (gridDim.y - 1 - blockIdx.y)).  S = Q K^T
+// (hd / 16 k steps) and dP = dO V^T (hd_v / 16) as one group, then dQ +=
+// dS K; dQ, S and dP in registers (160 f32 a thread at hd 192).
+template <int HD, int HDV>
 __global__ void __launch_bounds__(128)
 wg_dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap domap,
              const __grid_constant__ CUtensorMap kmap, const __grid_constant__ CUtensorMap vmap,
@@ -424,12 +645,14 @@ wg_dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
              int Hq, int Hkv, int Sq, int Sk, int hd, int causal, int q_offset, float scale,
              float scale_log2) {
   constexpr int NS = HD / 64;
-  constexpr uint32_t kTileBytes = NS * kSlice * 2;
+  constexpr int NSV = HDV / 64;
+  constexpr uint32_t kKBytes = NS * kSlice * 2;
+  constexpr uint32_t kVBytes = NSV * kSlice * 2;
   extern __shared__ unsigned char smem_raw[];
   bf16* Qs = align1024(smem_raw);
   bf16* dOs = Qs + NS * kSlice;
-  bf16* KV = dOs + NS * kSlice;                     // stage s: K at 2s NS, V after it
-  uint64_t* bars = reinterpret_cast<uint64_t*>(KV + 4 * NS * kSlice);  // q/do, full[2]
+  bf16* KV = dOs + NSV * kSlice;                    // stage s: K at s (NS + NSV), V after it
+  uint64_t* bars = reinterpret_cast<uint64_t*>(KV + 2 * (NS + NSV) * kSlice);  // q/do, full[2]
 
   const int bh = blockIdx.x, b = bh / Hq, h = bh % Hq;
   const int kvbh = b * Hkv + h / (Hq / Hkv);
@@ -443,14 +666,15 @@ wg_dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   const int t1 = (int)((long long)n * (blockIdx.z + 1) / gridDim.z);
 
   auto issue_kv = [&](int t, int stage) {
-    bf16* Ks = KV + stage * 2 * NS * kSlice;
+    bf16* Ks = KV + stage * (NS + NSV) * kSlice;
     bf16* Vs = Ks + NS * kSlice;
-    mbar_expect_tx(&bars[1 + stage], 2 * kTileBytes);
+    mbar_expect_tx(&bars[1 + stage], kKBytes + kVBytes);
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
+    for (int s = 0; s < NS; ++s)
       tma_load_3d(Ks + s * kSlice, &kmap, &bars[1 + stage], s * 64, t * kTile, kvbh);
+#pragma unroll
+    for (int s = 0; s < NSV; ++s)
       tma_load_3d(Vs + s * kSlice, &vmap, &bars[1 + stage], s * 64, t * kTile, kvbh);
-    }
   };
 
   if (tid == 0) {
@@ -460,12 +684,11 @@ wg_dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(&bars[0], 2 * kTileBytes);
+    mbar_expect_tx(&bars[0], kKBytes + kVBytes);
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      tma_load_3d(Qs + s * kSlice, &qmap, &bars[0], s * 64, q0, bh);
-      tma_load_3d(dOs + s * kSlice, &domap, &bars[0], s * 64, q0, bh);
-    }
+    for (int s = 0; s < NS; ++s) tma_load_3d(Qs + s * kSlice, &qmap, &bars[0], s * 64, q0, bh);
+#pragma unroll
+    for (int s = 0; s < NSV; ++s) tma_load_3d(dOs + s * kSlice, &domap, &bars[0], s * 64, q0, bh);
     if (t0 < t1) issue_kv(t0, 0);
   }
 
@@ -489,7 +712,7 @@ wg_dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     const int stage = (t - t0) & 1;
     if (tid == 0 && t + 1 < t1) issue_kv(t + 1, stage ^ 1);
     mbar_wait(&bars[1 + stage], ((t - t0) >> 1) & 1);
-    const bf16* Ks = KV + stage * 2 * NS * kSlice;
+    const bf16* Ks = KV + stage * (NS + NSV) * kSlice;
     const bf16* Vs = Ks + NS * kSlice;
 
     float sc[32], dp[32];
@@ -497,10 +720,12 @@ wg_dq_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
+    for (int kk = 0; kk < (HD > HDV ? HD : HDV) / 16; ++kk) {
       const int off = (kk / 4) * kSlice + (kk % 4) * 16;
-      wgmma_ss(sc, desc_sw128(Qs + off, 16, 1024), desc_sw128(Ks + off, 16, 1024), kk > 0);
-      wgmma_ss(dp, desc_sw128(dOs + off, 16, 1024), desc_sw128(Vs + off, 16, 1024), kk > 0);
+      if (kk < HD / 16)
+        wgmma_ss(sc, desc_sw128(Qs + off, 16, 1024), desc_sw128(Ks + off, 16, 1024), kk > 0);
+      if (kk < HDV / 16)
+        wgmma_ss(dp, desc_sw128(dOs + off, 16, 1024), desc_sw128(Vs + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -569,29 +794,30 @@ struct WalkSplit {
   int* counters;
 };
 
-template <int HD>
+template <int HD, int HDV>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, void* dq, void* dk, void* dv,
-                         int B, int Hq, int Hkv, int Sq, int Sk, int hd, int causal, int q_offset,
-                         cudaStream_t st, const WalkSplit& kv, const WalkSplit& qs) {
+                         int B, int Hq, int Hkv, int Sq, int Sk, int hd, int hd_v, int causal,
+                         int q_offset, cudaStream_t st, const WalkSplit& kv, const WalkSplit& qs) {
   CUtensorMap qm, dom, km, vm;
-  if (!make_map(&qm, q, hd, Sq, B * Hq) || !make_map(&dom, dout, hd, Sq, B * Hq) ||
-      !make_map(&km, k, hd, Sk, B * Hkv) || !make_map(&vm, v, hd, Sk, B * Hkv))
+  if (!make_map(&qm, q, hd, Sq, B * Hq) || !make_map(&dom, dout, hd_v, Sq, B * Hq) ||
+      !make_map(&km, k, hd, Sk, B * Hkv) || !make_map(&vm, v, hd_v, Sk, B * Hkv))
     return cudaErrorInvalidValue;
-  constexpr int bytes = wg_smem_bytes<HD>();
+  constexpr int bytes = wg_smem_bytes<HD, HDV>();
   // the opt-in above 48 KB belongs to the current device: set it every call
-  cudaError_t err = cudaFuncSetAttribute(wg_dkdv_kernel<HD>,
+  cudaError_t err = cudaFuncSetAttribute(wg_dkdv_kernel<HD, HDV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(wg_dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(wg_dq_kernel<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)hd), scale_log2 = scale * kLog2e;
-  wg_dkdv_kernel<HD><<<dim3(B * Hkv, (Sk + kTile - 1) / kTile, kv.n), 128, bytes, st>>>(
+  wg_dkdv_kernel<HD, HDV><<<dim3(B * Hkv, (Sk + kTile - 1) / kTile, kv.n), dkdv_threads<HD>(),
+                            bytes, st>>>(
       qm, dom, km, vm, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), kv.part,
-      kv.counters, Hq, Hkv, Sq, Sk, hd, causal, q_offset, scale, scale_log2);
+      kv.counters, Hq, Hkv, Sq, Sk, hd, hd_v, causal, q_offset, scale, scale_log2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  wg_dq_kernel<HD><<<dim3(B * Hq, (Sq + kTile - 1) / kTile, qs.n), 128, bytes, st>>>(
+  wg_dq_kernel<HD, HDV><<<dim3(B * Hq, (Sq + kTile - 1) / kTile, qs.n), 128, bytes, st>>>(
       qm, dom, km, vm, lse, delta, static_cast<bf16*>(dq), qs.part, qs.counters, Hq, Hkv, Sq,
       Sk, hd, causal, q_offset, scale, scale_log2);
   return cudaGetLastError();
@@ -712,8 +938,8 @@ tf32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dk, float* __restrict__ dv, float* __restrict__ part,
                  int* __restrict__ counters, int Hq, int Hkv, int Sq, int Sk, int hd,
-                 int causal, int q_offset, float scale, float scale_log2) {
-  constexpr int NT = HD / 8;   // 8-column tiles (and k steps) of hd
+                 int hd_v, int causal, int q_offset, float scale, float scale_log2) {
+  constexpr int NT = HD / 8;   // 8-column tiles (and k steps) of hd and of hd_v
   extern __shared__ __align__(16) float fsmem[];
   float* Ks = fsmem;
   float* Vs = Ks + kTile * HD;
@@ -734,7 +960,7 @@ tf32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto load_item = [&](int i, int stage) {
     float* Qs = QO + stage * 2 * kTile * HD;
     load_swz<HD>(Qs, q + (size_t)bh_of(i) * Sq * hd, q0_of(i), Sq, hd);
-    load_swz<HD>(Qs + kTile * HD, dout + (size_t)bh_of(i) * Sq * hd, q0_of(i), Sq, hd);
+    load_swz<HD>(Qs + kTile * HD, dout + (size_t)bh_of(i) * Sq * hd_v, q0_of(i), Sq, hd_v);
   };
   auto row_stat = [&](int i) {
     const int r = q0_of(i) + tid % 64;
@@ -744,7 +970,7 @@ tf32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   };
 
   load_swz<HD>(Ks, k + (size_t)kvbh * Sk * hd, k0, Sk, hd);
-  load_swz<HD>(Vs, v + (size_t)kvbh * Sk * hd, k0, Sk, hd);
+  load_swz<HD>(Vs, v + (size_t)kvbh * Sk * hd_v, k0, Sk, hd_v);
   if (i0 < i1) {
     load_item(i0, 0);
     (tid < 64 ? Ls : Dl)[tid % 64] = row_stat(i0);
@@ -841,7 +1067,7 @@ tf32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           part + (size_t)tile * gridDim.z * 2 * kTile * HD, counters + tile))
     return;
 
-  const size_t base = (size_t)kvbh * Sk * hd;
+  const size_t base = (size_t)kvbh * Sk;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = k0 + m0 + g + 8 * h;
@@ -849,12 +1075,12 @@ tf32_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int col = 8 * nt + 2 * t;
-      if (col < hd) {
-        *reinterpret_cast<float2*>(dk + base + (size_t)key * hd + col) =
+      if (col < hd)
+        *reinterpret_cast<float2*>(dk + (base + key) * hd + col) =
             make_float2(dka[nt][2 * h] * scale, dka[nt][2 * h + 1] * scale);
-        *reinterpret_cast<float2*>(dv + base + (size_t)key * hd + col) =
+      if (col < hd_v)
+        *reinterpret_cast<float2*>(dv + (base + key) * hd_v + col) =
             make_float2(dva[nt][2 * h], dva[nt][2 * h + 1]);
-      }
     }
   }
 }
@@ -867,8 +1093,8 @@ tf32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dq, float* __restrict__ part, int* __restrict__ counters,
-               int Hq, int Hkv, int Sq, int Sk, int hd, int causal, int q_offset, float scale,
-               float scale_log2) {
+               int Hq, int Hkv, int Sq, int Sk, int hd, int hd_v, int causal, int q_offset,
+               float scale, float scale_log2) {
   constexpr int NT = HD / 8;
   extern __shared__ __align__(16) float fsmem[];
   float* Qs = fsmem;
@@ -880,17 +1106,17 @@ tf32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const float* kb = k + (size_t)kvbh * Sk * hd;
-  const float* vb = v + (size_t)kvbh * Sk * hd;
+  const float* vb = v + (size_t)kvbh * Sk * hd_v;
   const int k_end = causal ? min(Sk, q_offset + min(q0 + kTile, Sq)) : Sk;
   const int n = k_end > 0 ? (k_end + kTile - 1) / kTile : 0;
   const int t0 = (int)((long long)n * blockIdx.z / gridDim.z);
   const int t1 = (int)((long long)n * (blockIdx.z + 1) / gridDim.z);
 
   load_swz<HD>(Qs, q + (size_t)bh * Sq * hd, q0, Sq, hd);
-  load_swz<HD>(dOs, dout + (size_t)bh * Sq * hd, q0, Sq, hd);
+  load_swz<HD>(dOs, dout + (size_t)bh * Sq * hd_v, q0, Sq, hd_v);
   if (t0 < t1) {
     load_swz<HD>(KV, kb, t0 * kTile, Sk, hd);
-    load_swz<HD>(KV + kTile * HD, vb, t0 * kTile, Sk, hd);
+    load_swz<HD>(KV + kTile * HD, vb, t0 * kTile, Sk, hd_v);
   }
   cp_async_commit();
 
@@ -910,7 +1136,7 @@ tf32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (it + 1 < t1) {
       float* Kn = KV + (stage ^ 1) * 2 * kTile * HD;
       load_swz<HD>(Kn, kb, k0 + kTile, Sk, hd);
-      load_swz<HD>(Kn + kTile * HD, vb, k0 + kTile, Sk, hd);
+      load_swz<HD>(Kn + kTile * HD, vb, k0 + kTile, Sk, hd_v);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -992,8 +1218,8 @@ tf32_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, void* dq, void* dk, void* dv,
-                        int B, int Hq, int Hkv, int Sq, int Sk, int hd, int causal, int q_offset,
-                        cudaStream_t st, const WalkSplit& kv, const WalkSplit& qs) {
+                        int B, int Hq, int Hkv, int Sq, int Sk, int hd, int hd_v, int causal,
+                        int q_offset, cudaStream_t st, const WalkSplit& kv, const WalkSplit& qs) {
   constexpr int bytes = tc_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(tf32_dkdv_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -1009,11 +1235,11 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, const void*
   const dim3 kv_grid(B * Hkv, (Sk + kTile - 1) / kTile, kv.n);
   tf32_dkdv_kernel<HD><<<kv_grid, kTcThreads, bytes, st>>>(
       qf, kf, vf, of, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), kv.part,
-      kv.counters, Hq, Hkv, Sq, Sk, hd, causal, q_offset, scale, scale_log2);
+      kv.counters, Hq, Hkv, Sq, Sk, hd, hd_v, causal, q_offset, scale, scale_log2);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   tf32_dq_kernel<HD><<<dim3(B * Hq, (Sq + kTile - 1) / kTile, qs.n), kTcThreads, bytes, st>>>(
       qf, kf, vf, of, lse, delta, static_cast<float*>(dq), qs.part, qs.counters, Hq, Hkv, Sq,
-      Sk, hd, causal, q_offset, scale, scale_log2);
+      Sk, hd, hd_v, causal, q_offset, scale, scale_log2);
   return cudaGetLastError();
 }
 
@@ -1072,8 +1298,9 @@ __device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A, con
 }
 
 // P and dS of one (64 queries, 64 keys) tile into Ps and dSs ([query][key],
-// rows of 64 + 4), from Q, dO, K, V tiles and the rows' lse and D.
-template <int HD>
+// rows of 64 + 4), from Q, K tiles (rows of HD + 4), dO, V tiles (HDV + 4)
+// and the rows' lse and D.
+template <int HD, int HDV>
 __device__ __forceinline__ void probs_and_dscores(const float* Qs, const float* dOs,
                                                   const float* Ks, const float* Vs,
                                                   const float* Ls, const float* Ds, float* Ps,
@@ -1082,7 +1309,7 @@ __device__ __forceinline__ void probs_and_dscores(const float* Qs, const float* 
   constexpr int ldp = kTile + 4;
   float s[4][4], dp[4][4];
   tile_dot<HD>(s, Qs, Ks, ty, tx);
-  tile_dot<HD>(dp, dOs, Vs, ty, tx);
+  tile_dot<HDV>(dp, dOs, Vs, ty, tx);
   // a tile that crosses Sk or the causal diagonal masks key by key; rows past
   // Sq have lse = +inf and so P = 0
   const bool edge = k0 + kTile > Sk || (causal && k0 + kTile - 1 > q_offset + q0);
@@ -1101,28 +1328,30 @@ __device__ __forceinline__ void probs_and_dscores(const float* Qs, const float* 
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr int smem_bytes() {
-  // four (64, HD + 4) tiles, two (64, 68) tiles, lse and D of 64 rows
-  return (int)sizeof(float) * (4 * kTile * (HD + 4) + 2 * kTile * (kTile + 4) + 2 * kTile);
+  // two (64, HD + 4) and two (64, HDV + 4) tiles, two (64, 68) tiles, lse
+  // and D of 64 rows: 203,264 bytes at (192, 128)
+  return (int)sizeof(float) *
+         (2 * kTile * (HD + 4) + 2 * kTile * (HDV + 4) + 2 * kTile * (kTile + 4) + 2 * kTile);
 }
 
 // One block: keys [k0, k0 + 64) of KV head (b, hk) = blockIdx.x, k0 =
 // 64 blockIdx.y.  Thread (ty, tx) accumulates dK and dV of keys 4 ty + i,
 // columns 4 tx + 64 c + e.
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ dout, const float* __restrict__ lse,
             const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Hq,
-            int Hkv, int Sq, int Sk, int hd, int causal, int q_offset, float scale) {
-  constexpr int ld = HD + 4, ldp = kTile + 4, NC = HD / 64;
+            int Hkv, int Sq, int Sk, int hd, int hd_v, int causal, int q_offset, float scale) {
+  constexpr int ld = HD + 4, ldv = HDV + 4, ldp = kTile + 4, NC = HD / 64, NCV = HDV / 64;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
   float* Vs = Ks + kTile * ld;
-  float* Qs = Vs + kTile * ld;
+  float* Qs = Vs + kTile * ldv;
   float* dOs = Qs + kTile * ld;
-  float* Ps = dOs + kTile * ld;
+  float* Ps = dOs + kTile * ldv;
   float* dSs = Ps + kTile * ldp;
   float* Ls = dSs + kTile * ldp;
   float* Ds = Ls + kTile;
@@ -1131,15 +1360,18 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int k0 = blockIdx.y * kTile;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   load_tile<T, HD>(Ks, k + (size_t)kvbh * Sk * hd, k0, Sk, hd);
-  load_tile<T, HD>(Vs, v + (size_t)kvbh * Sk * hd, k0, Sk, hd);
+  load_tile<T, HDV>(Vs, v + (size_t)kvbh * Sk * hd_v, k0, Sk, hd_v);
 
-  float adk[4][NC][4], adv[4][NC][4];
+  float adk[4][NC][4], adv[4][NCV][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+    for (int e = 0; e < 4; ++e) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) adk[i][c][e] = adv[i][c][e] = 0.f;
+      for (int c = 0; c < NC; ++c) adk[i][c][e] = 0.f;
+#pragma unroll
+      for (int c = 0; c < NCV; ++c) adv[i][c][e] = 0.f;
+    }
 
   // queries before k0 - q_offset see none of these keys
   const int first = causal ? max(0, k0 - q_offset) / kTile : 0;
@@ -1147,20 +1379,20 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   for (int g = 0; g < group; ++g) {
     const int bh = b * Hq + hk * group + g;
     const T* qb = q + (size_t)bh * Sq * hd;
-    const T* dob = dout + (size_t)bh * Sq * hd;
+    const T* dob = dout + (size_t)bh * Sq * hd_v;
     for (int t = first; t < nq; ++t) {
       const int q0 = t * kTile;
       __syncthreads();  // the previous tile's Q, dO, P and dS are read
       load_tile<T, HD>(Qs, qb, q0, Sq, hd);
-      load_tile<T, HD>(dOs, dob, q0, Sq, hd);
+      load_tile<T, HDV>(dOs, dob, q0, Sq, hd_v);
       if (tid < kTile) {
         const int r = q0 + tid;
         Ls[tid] = r < Sq ? lse[(size_t)bh * Sq + r] : INFINITY;
         Ds[tid] = r < Sq ? delta[(size_t)bh * Sq + r] : 0.f;
       }
       __syncthreads();
-      probs_and_dscores<HD>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, k0, Sk, causal, q_offset,
-                            scale, ty, tx);
+      probs_and_dscores<HD, HDV>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, k0, Sk, causal,
+                                 q_offset, scale, ty, tx);
       __syncthreads();
       // dV[key] += P[q][key] dO[q];  dK[key] += dS[q][key] Q[q]
 #pragma unroll 2
@@ -1168,20 +1400,28 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         const float4 pv = *reinterpret_cast<const float4*>(Ps + qq * ldp + 4 * ty);
         const float4 sv = *reinterpret_cast<const float4*>(dSs + qq * ldp + 4 * ty);
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 ov = *reinterpret_cast<const float4*>(dOs + qq * ld + 4 * tx + 64 * c);
-          const float4 qv = *reinterpret_cast<const float4*>(Qs + qq * ld + 4 * tx + 64 * c);
+        for (int c = 0; c < (NC > NCV ? NC : NCV); ++c) {
+          if (c < NCV) {
+            const float4 ov = *reinterpret_cast<const float4*>(dOs + qq * ldv + 4 * tx + 64 * c);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = pick(pv, i), ds = pick(sv, i);
-            adv[i][c][0] += p * ov.x;
-            adv[i][c][1] += p * ov.y;
-            adv[i][c][2] += p * ov.z;
-            adv[i][c][3] += p * ov.w;
-            adk[i][c][0] += ds * qv.x;
-            adk[i][c][1] += ds * qv.y;
-            adk[i][c][2] += ds * qv.z;
-            adk[i][c][3] += ds * qv.w;
+            for (int i = 0; i < 4; ++i) {
+              const float p = pick(pv, i);
+              adv[i][c][0] += p * ov.x;
+              adv[i][c][1] += p * ov.y;
+              adv[i][c][2] += p * ov.z;
+              adv[i][c][3] += p * ov.w;
+            }
+          }
+          if (c < NC) {
+            const float4 qv = *reinterpret_cast<const float4*>(Qs + qq * ld + 4 * tx + 64 * c);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float ds = pick(sv, i);
+              adk[i][c][0] += ds * qv.x;
+              adk[i][c][1] += ds * qv.y;
+              adk[i][c][2] += ds * qv.z;
+              adk[i][c][3] += ds * qv.w;
+            }
           }
         }
       }
@@ -1193,36 +1433,35 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     const int key = k0 + 4 * ty + i;
     if (key >= Sk) continue;
     T* dkr = dk + ((size_t)kvbh * Sk + key) * hd;
-    T* dvr = dv + ((size_t)kvbh * Sk + key) * hd;
+    T* dvr = dv + ((size_t)kvbh * Sk + key) * hd_v;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
+    for (int e = 0; e < 4; ++e) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 4 * tx + 64 * c + e;
-        if (d < hd) {
-          store(dkr + d, adk[i][c][e] * scale);
-          store(dvr + d, adv[i][c][e]);
-        }
-      }
+      for (int c = 0; c < NC; ++c)
+        if (4 * tx + 64 * c + e < hd) store(dkr + 4 * tx + 64 * c + e, adk[i][c][e] * scale);
+#pragma unroll
+      for (int c = 0; c < NCV; ++c)
+        if (4 * tx + 64 * c + e < hd_v) store(dvr + 4 * tx + 64 * c + e, adv[i][c][e]);
+    }
   }
 }
 
 // One block: queries [q0, q0 + 64) of (b, h) = blockIdx.x, tiles from the
 // last.  Thread (ty, tx) accumulates dQ of queries 4 ty + i, columns
 // 4 tx + 64 c + e.
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse,
           const float* __restrict__ delta, T* __restrict__ dq, int Hq, int Hkv, int Sq, int Sk,
-          int hd, int causal, int q_offset, float scale) {
-  constexpr int ld = HD + 4, ldp = kTile + 4, NC = HD / 64;
+          int hd, int hd_v, int causal, int q_offset, float scale) {
+  constexpr int ld = HD + 4, ldv = HDV + 4, ldp = kTile + 4, NC = HD / 64;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + kTile * ld;
-  float* Ks = dOs + kTile * ld;
+  float* Ks = dOs + kTile * ldv;
   float* Vs = Ks + kTile * ld;
-  float* Ps = Vs + kTile * ld;
+  float* Ps = Vs + kTile * ldv;
   float* dSs = Ps + kTile * ldp;
   float* Ls = dSs + kTile * ldp;
   float* Ds = Ls + kTile;
@@ -1232,9 +1471,9 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const T* kb = k + (size_t)kvbh * Sk * hd;
-  const T* vb = v + (size_t)kvbh * Sk * hd;
+  const T* vb = v + (size_t)kvbh * Sk * hd_v;
   load_tile<T, HD>(Qs, q + (size_t)bh * Sq * hd, q0, Sq, hd);
-  load_tile<T, HD>(dOs, dout + (size_t)bh * Sq * hd, q0, Sq, hd);
+  load_tile<T, HDV>(dOs, dout + (size_t)bh * Sq * hd_v, q0, Sq, hd_v);
   if (tid < kTile) {
     const int r = q0 + tid;
     Ls[tid] = r < Sq ? lse[(size_t)bh * Sq + r] : INFINITY;
@@ -1256,10 +1495,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const int k0 = t * kTile;
     __syncthreads();  // the previous tile's K and V are read
     load_tile<T, HD>(Ks, kb, k0, Sk, hd);
-    load_tile<T, HD>(Vs, vb, k0, Sk, hd);
+    load_tile<T, HDV>(Vs, vb, k0, Sk, hd_v);
     __syncthreads();
-    probs_and_dscores<HD>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, k0, Sk, causal, q_offset, scale,
-                          ty, tx);
+    probs_and_dscores<HD, HDV>(Qs, dOs, Ks, Vs, Ls, Ds, Ps, dSs, q0, k0, Sk, causal, q_offset,
+                               scale, ty, tx);
     __syncwarp();  // a query row's dS comes from its own half-warp
     // dQ[q] += dS[q][key] K[key]
 #pragma unroll 2
@@ -1300,79 +1539,98 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, void* dq, void* dk, void* dv,
-                        int B, int Hq, int Hkv, int Sq, int Sk, int hd, int causal, int q_offset,
-                        cudaStream_t st) {
-  constexpr int bytes = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<T, HD>,
+                        int B, int Hq, int Hkv, int Sq, int Sk, int hd, int hd_v, int causal,
+                        int q_offset, cudaStream_t st) {
+  constexpr int bytes = smem_bytes<HD, HDV>();
+  cudaError_t err = cudaFuncSetAttribute(dkdv_kernel<T, HD, HDV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(dq_kernel<T, HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              bytes);
   if (err != cudaSuccess) return err;
   const float scale = 1.0f / sqrtf((float)hd);
-  dkdv_kernel<T, HD><<<dim3(B * Hkv, (Sk + kTile - 1) / kTile), kThreads, bytes, st>>>(
+  dkdv_kernel<T, HD, HDV><<<dim3(B * Hkv, (Sk + kTile - 1) / kTile), kThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Hq, Hkv,
-      Sq, Sk, hd, causal, q_offset, scale);
+      Sq, Sk, hd, hd_v, causal, q_offset, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dq_kernel<T, HD><<<dim3(B * Hq, (Sq + kTile - 1) / kTile), kThreads, bytes, st>>>(
+  dq_kernel<T, HD, HDV><<<dim3(B * Hq, (Sq + kTile - 1) / kTile), kThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), Hq, Hkv, Sq, Sk, hd, causal,
-      q_offset, scale);
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), Hq, Hkv, Sq, Sk, hd, hd_v,
+      causal, q_offset, scale);
   return cudaGetLastError();
+}
+
+// the CUDA cores at hd's and hd_v's classes: (64, 64), (128, 128), (192, 128)
+template <typename T>
+cudaError_t launch_simt_hd(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                           int B, int Hq, int Hkv, int Sq, int Sk, int hd, int hd_v, int causal,
+                           int q_offset, cudaStream_t st) {
+#define SIMT_ARGS q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, hd, hd_v, causal, \
+                  q_offset, st
+  if (hd <= 64) return launch_simt<T, 64, 64>(SIMT_ARGS);
+  if (hd <= 128) return launch_simt<T, 128, 128>(SIMT_ARGS);
+  return launch_simt<T, 192, 128>(SIMT_ARGS);
+#undef SIMT_ARGS
 }
 
 }  // namespace
 
-// q, o, dout, dq: (B, Hq, Sq, hd); k, v, dk, dv: (B, Hkv, Sk, hd); lse and
-// delta (scratch for D): (B, Hq, Sq) f32; all contiguous on the device.
-// dtype 0 = float32, 1 = bfloat16; route 1 = the tensor cores (3xTF32 for
-// f32 with hd % 4 == 0 and hd <= 64, wgmma for bf16 with hd % 8 == 0), 0 =
-// the CUDA cores (any hd).  The tensor-core route splits the walk of each dK/dV tile
+// q, dq: (B, Hq, Sq, hd); o, dout: (B, Hq, Sq, hd_v); k, dk: (B, Hkv, Sk,
+// hd); v, dv: (B, Hkv, Sk, hd_v); lse and delta (scratch for D): (B, Hq,
+// Sq) f32; all contiguous on the device.  hd_v <= hd, both in one 64-wide
+// class up to 128, or hd in (128, 192] with hd_v in (64, 128] (the
+// forward's pairs); the scale is 1 / sqrt(hd).  dtype 0 = float32, 1 =
+// bfloat16; route 1 = the tensor cores (3xTF32 for f32 with hd and hd_v
+// multiples of 4 up to 64, wgmma for bf16 with both multiples of 8), 0 =
+// the CUDA cores.  The tensor-core route splits the walk of each dK/dV tile
 // over nsplit_kv blocks and of each dQ tile over nsplit_q; where either is
-// above 1, part holds (B Hkv nk nsplit_kv 2 + B Hq nq nsplit_q) 64 HD f32
-// partial sums (a term whose split is 1 takes no room; nk, nq: tiles of
-// 64 keys and queries, HD: hd rounded up to 64 or 128) and counters
-// B Hkv nk + B Hq nq int32 zeros, which the kernels leave zero.  Returns
-// the first launch error (cudaError_t, 0 when all three launches were
-// accepted).
+// above 1, part holds B Hkv nk nsplit_kv 64 (HD + HDV) + B Hq nq nsplit_q
+// 64 HD f32 partial sums (a term whose split is 1 takes no room; nk, nq:
+// tiles of 64 keys and queries; HD, HDV: hd and hd_v rounded up to 64, 128
+// or 192) and counters B Hkv nk + B Hq nq int32 zeros, which the kernels
+// leave zero.  Returns the first launch error (cudaError_t, 0 when all
+// three launches were accepted).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, int B, int Hq, int Hkv, int Sq, int Sk,
-                                   int hd, int causal, int q_offset, int dtype, int route,
-                                   int nsplit_kv, int nsplit_q, float* part, int* counters,
-                                   void* stream) {
+                                   int hd, int hd_v, int causal, int q_offset, int dtype,
+                                   int route, int nsplit_kv, int nsplit_q, float* part,
+                                   int* counters, void* stream) {
   const bool split = nsplit_kv > 1 || nsplit_q > 1;
-  if (B <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || hd <= 0 || hd > 128 || Hq % Hkv != 0 ||
-      (Sq + kTile - 1) / kTile > 65535 || (Sk + kTile - 1) / kTile > 65535 ||
+  const int HD = width_class(hd), HDV = width_class(hd_v);
+  const bool pair = hd_v <= hd && (HD == HDV || (HD == 192 && HDV == 128));
+  if (B <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || hd_v <= 0 || hd > 192 || !pair ||
+      Hq % Hkv != 0 || (Sq + kTile - 1) / kTile > 65535 || (Sk + kTile - 1) / kTile > 65535 ||
       (dtype != 0 && dtype != 1) || (route != 0 && route != 1) ||
-      (route == 1 && (dtype == 0 ? hd % 4 != 0 || hd > 64 : hd % 8 != 0)) ||
+      (route == 1 && (dtype == 0 ? hd % 4 != 0 || hd_v % 4 != 0 || hd > 64
+                                 : hd % 8 != 0 || hd_v % 8 != 0)) ||
       nsplit_kv < 1 || nsplit_q < 1 || nsplit_kv > 64 || nsplit_q > 64 ||
       (split && (route == 0 || !part || !counters)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = B * Hq * Sq;
-  cudaError_t err = dtype == 0 ? launch_dot<float>(o, dout, delta, rows, hd, st)
-                               : launch_dot<bf16>(o, dout, delta, rows, hd, st);
+  cudaError_t err = dtype == 0 ? launch_dot<float>(o, dout, delta, rows, hd_v, st)
+                               : launch_dot<bf16>(o, dout, delta, rows, hd_v, st);
   if (err != cudaSuccess) return err;
   // the dQ kernel's scratch and counters come after the dK/dV kernel's
   const size_t kv_tiles = (size_t)B * Hkv * ((Sk + kTile - 1) / kTile);
-  const size_t kv_floats =
-      nsplit_kv > 1 ? kv_tiles * nsplit_kv * 2 * kTile * (hd <= 64 ? 64 : 128) : 0;
+  const size_t kv_floats = nsplit_kv > 1 ? kv_tiles * nsplit_kv * kTile * (HD + HDV) : 0;
   const WalkSplit kv{nsplit_kv, part, counters};
   const WalkSplit qs{nsplit_q, part ? part + kv_floats : nullptr,
                      counters ? counters + kv_tiles : nullptr};
-#define ARGS q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset, st
-  if (dtype == 0) {
-    if (route == 1) return launch_tf32<64>(ARGS, kv, qs);
-    return hd <= 64 ? launch_simt<float, 64>(ARGS) : launch_simt<float, 128>(ARGS);
-  }
-  if (route == 1)
-    return hd <= 64 ? launch_wgmma<64>(ARGS, kv, qs) : launch_wgmma<128>(ARGS, kv, qs);
-  return hd <= 64 ? launch_simt<bf16, 64>(ARGS) : launch_simt<bf16, 128>(ARGS);
+#define ARGS q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Sk, hd, hd_v, causal, \
+             q_offset, st
+  if (dtype == 0)
+    return route == 1 ? launch_tf32<64>(ARGS, kv, qs) : launch_simt_hd<float>(ARGS);
+  if (route == 0) return launch_simt_hd<bf16>(ARGS);
+  if (HD == 64) return launch_wgmma<64, 64>(ARGS, kv, qs);
+  if (HD == 128) return launch_wgmma<128, 128>(ARGS, kv, qs);
+  return launch_wgmma<192, 128>(ARGS, kv, qs);
 #undef ARGS
 }
 

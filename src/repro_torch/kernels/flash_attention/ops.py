@@ -12,10 +12,9 @@ expanded attention: 192 and 128); the scale is ``1 / sqrt(hd)``.
 Under grad mode, with an input that requires grad, a CUDA call is a
 ``torch.autograd.Function``: its forward also writes each query row's
 log-sum-exp, and its backward launches ``csrc/flash_attention_bwd.cu``
-(:mod:`.bwd`).  Outside grad mode no log-sum-exp is written, so serving runs
-the kernel exactly as before.  The backward takes ``hd_v == hd`` up to
-:data:`bwd.MAX_HEAD_DIM`; another shape under grad mode raises
-``NotImplementedError`` (MLA training, ROADMAP.md Queue 1).  CPU tensors get
+(:mod:`.bwd`), which takes every pair of widths the forward takes (MLA's
+192 and 128 included).  Outside grad mode no log-sum-exp is written, so
+serving runs the kernel exactly as before.  CPU tensors get
 :func:`attention_ref`, which autograd differentiates.  A ``meta`` tensor
 takes the CUDA route up to the launch and reports the kernel's :func:`cost`
 to ``core.cost.analysis`` instead (a dry run); a CUDA call reports it too.
@@ -37,16 +36,9 @@ from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
 launches = 0
 
 MAX_HEAD_DIM = 192
-# the (hd, hd_v) pairs the kernel is instantiated for, each width in 64-column
-# slices: one width up to 128, or MLA's 192 with 128
-_PAIRS = {(1, 1), (2, 2), (3, 2)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 5 + [_I] * 10 + [_P]
-
-
-def _slices(hd: int, hd_v: int) -> Tuple[int, int]:
-    return -(-hd // 64), -(-hd_v // 64)
 
 
 def _check(q, k, v) -> None:
@@ -60,12 +52,7 @@ def _check(q, k, v) -> None:
     if k.shape[0] != B or hd_k != hd or Hq % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not "
                          f"match k {tuple(k.shape)}")
-    if hd > MAX_HEAD_DIM or v.shape[3] > hd \
-            or _slices(hd, v.shape[3]) not in _PAIRS:
-        raise ValueError(f"flash_attention: want hd_v <= hd <= {MAX_HEAD_DIM}, "
-                         "both in one 64-wide class up to 128, or hd in (128, "
-                         f"192] with hd_v in (64, 128]; got hd {hd}, hd_v "
-                         f"{v.shape[3]}")
+    ref.check_widths("flash_attention", hd, v.shape[3])
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k, v must share one dtype of "
                         f"{list(_DTYPES)}; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -163,12 +150,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        hd, hd_v = q.shape[3], v.shape[3]
-        if hd_v != hd or hd > bwd.MAX_HEAD_DIM:
-            raise NotImplementedError(
-                f"flash_attention: the backward of hd {hd}, hd_v {hd_v} is not "
-                "ported yet (MLA training, ROADMAP.md Queue 1); the backward "
-                f"kernel takes hd_v == hd <= {bwd.MAX_HEAD_DIM}")
         return FlashAttention.apply(q, k, v, causal, int(q_offset))
     return _launch(q, k, v, causal, q_offset, with_lse=False)[0]
 

@@ -9,6 +9,20 @@ import torch
 # calls of the plain versions; a run on the card must leave it at 0
 calls = 0
 
+# the (hd, hd_v) pairs the kernels (forward and backward) take, each width in
+# 64-column slices: one class up to 128, or MLA's 192 with 128
+PAIRS = {(1, 1), (2, 2), (3, 2)}
+
+
+def check_widths(name: str, hd: int, hd_v: int) -> None:
+    """Raise ValueError unless the kernels take (hd, hd_v): hd_v <= hd,
+    both in one 64-wide class up to 128, or hd in (128, 192] with hd_v in
+    (64, 128]."""
+    if hd_v > hd or (-(-hd // 64), -(-hd_v // 64)) not in PAIRS:
+        raise ValueError(f"{name}: want hd_v <= hd <= 192, both in one "
+                         "64-wide class up to 128, or hd in (128, 192] with "
+                         f"hd_v in (64, 128]; got hd {hd}, hd_v {hd_v}")
+
 
 def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, q_offset: int
             ) -> torch.Tensor:

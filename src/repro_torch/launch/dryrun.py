@@ -117,7 +117,7 @@ def main(argv=None):
             with open(os.path.join(args.out, tag + ".json"), "w") as f:
                 json.dump(rep, f, indent=1)
         except NotImplementedError as e:
-            # the card refuses the step the same way (e.g. MLA training)
+            # the card refuses the step the same way (blocks not ported)
             not_ported.append((tag, str(e)))
         except Exception as e:
             traceback.print_exc()

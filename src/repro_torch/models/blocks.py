@@ -226,9 +226,11 @@ def unstack(stacked: Params) -> List[Params]:
     tree, as views.  Each leaf is unbound once: the backward of unbind
     stacks the layers' gradients in one op, where indexing each layer
     (t[i]) would give every layer a zero-filled gradient of the whole stack
-    and add them up (quadratic in depth)."""
+    and add them up (quadratic in depth).  A tree without leaves (the empty
+    period of a stack cut to its prefix blocks, such as deepseek's
+    ``TRAIN_CARD``) holds no trees."""
     unbound = L.tree_map(lambda t: t.unbind(0), stacked)
-    n = len(next(L.leaves(unbound)))
+    n = len(next(L.leaves(unbound), ()))
     return [L.tree_map(lambda views: views[i], unbound) for i in range(n)]
 
 
@@ -281,6 +283,6 @@ def apply_stack(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if mode == "prefill":
         new_cache = {"prefix": prefix_cache} if prefix_cache else {}
         new_cache["periods"] = L.tree_map(lambda *xs: torch.stack(xs),
-                                          *per_period)
+                                          *per_period) if per_period else {}
         return x, new_cache, total_aux
     return x, None, total_aux

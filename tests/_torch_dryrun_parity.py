@@ -88,15 +88,30 @@ def head_recompute(cfg, mode) -> int:
     return 2 * B * (text - 1) * cfg.d_model * cfg.vocab_size
 
 
-def kernel_extra(rep) -> int:
+def attention_widths(cfg) -> tuple:
+    """(hd, hd_v) of the step's attention: MLA's expanded query/key (nope +
+    rope) and value widths, else the head dim for both."""
+    a = cfg.attention
+    if a.kind == "mla":
+        return a.qk_nope_head_dim + a.qk_rope_head_dim, a.v_head_dim
+    return a.head_dim, a.head_dim
+
+
+def kernel_extra(rep, cfg) -> int:
     """What a ``meta`` count adds over the plain versions' products: every
     scan kernel's formula (the plain scans are stood in for, see
     :func:`stand_in_scans`), and the three products of K2's backward that
     autograd over the plain attention does not compute (S in both of its
-    passes, dP in the dQ pass: 3 of its 7)."""
+    passes, dP in the dQ pass): of its 2 B Hq pairs (4 hd + 3 hd_v), the
+    share (2 hd + hd_v) / (4 hd + 3 hd_v), 3 / 7 where hd_v = hd."""
     by_op = rep["by_op"]
-    return sum(by_op.get(k, {}).get("flops", 0) for k in SCAN_KERNELS) \
-        + by_op.get("flash_attention_bwd", {}).get("flops", 0) * 3 // 7
+    extra = sum(by_op.get(k, {}).get("flops", 0) for k in SCAN_KERNELS)
+    bwd = by_op.get("flash_attention_bwd", {}).get("flops", 0)
+    if bwd:
+        hd, hd_v = attention_widths(cfg)
+        assert bwd * (2 * hd + hd_v) % (4 * hd + 3 * hd_v) == 0
+        extra += bwd * (2 * hd + hd_v) // (4 * hd + 3 * hd_v)
+    return extra
 
 
 # ---- the scans, stood in for in both packages ----------------------------
@@ -159,6 +174,7 @@ def check_cell(monkeypatch, arch, mode, remat="none", meta=True):
     assert fake["flops"] == walker + head_recompute(tcfg, mode), \
         (fake["flops"], walker, head_recompute(tcfg, mode))
     if meta_rep is not None:
-        assert meta_rep["flops"] - kernel_extra(meta_rep) == fake["flops"], \
-            (meta_rep["flops"], kernel_extra(meta_rep), fake["flops"])
+        extra = kernel_extra(meta_rep, tcfg)
+        assert meta_rep["flops"] - extra == fake["flops"], \
+            (meta_rep["flops"], extra, fake["flops"])
     return walker, fake, meta_rep

@@ -286,6 +286,31 @@ def test_flash_attention_bwd_meta_route():
         "count": 1}}
 
 
+def test_flash_attention_bwd_cost_at_mla_widths():
+    """At MLA's (192, 128) the backward's seven products count their own
+    widths, 2 B Hq pairs (4 hd + 3 hd_v): S and dK at hd and dP and dV at
+    hd_v in the dK/dV pass, S and dQ at hd and dP at hd_v in the dQ pass;
+    bytes: q, k, dq, dk at hd, v, o, do, dv at hd_v, and lse."""
+    B, Hq, Hkv, Sq, Sk, hd, hd_v = 2, 4, 4, 8, 12, 192, 128
+    q, k, v, o, do = (_rand(*s, seed=i) for i, s in enumerate(
+        ((B, Hq, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd_v),
+         (B, Hq, Sq, hd_v), (B, Hq, Sq, hd_v))))
+    lse = fops.ref.attention_lse_ref(q, k, causal=True, q_offset=Sk - Sq)
+    out, rows = _noted(fbwd.flash_attention_bwd,
+                       *_meta(q, k, v, o, lse, do), q_offset=Sk - Sq)
+    _like(out, (q, k, v))
+    flops = 2 * B * Hq * Sq * Sk * (4 * hd + 3 * hd_v)
+    assert flops == 7 * 2 * B * Hq * Sq * Sk * hd * 1152 // 1344
+    assert rows == {"flash_attention_bwd": {
+        "flops": flops,
+        "bytes": 4 * (2 * (B * Hq * Sq * hd + B * Hkv * Sk * (hd + hd_v))
+                      + 2 * B * Hq * Sq * hd_v + B * Hq * Sq),
+        "count": 1}}
+    # the visible pairs a caller passes
+    assert fbwd.cost(q, k, v, o, lse, do, pairs=50)[0] == \
+        2 * B * Hq * 50 * (4 * hd + 3 * hd_v)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mla_decode_meta_route(dtype):
     B, H, L, R, T = 2, 4, 32, 8, 16

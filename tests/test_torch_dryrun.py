@@ -15,7 +15,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from _torch_dryrun_parity import B, SEQ, check_cell, configs, f32, port_count
+from _torch_dryrun_parity import (B, SEQ, attention_widths, check_cell,
+                                  configs, f32, port_count)
 from repro.core.hlo.analysis import analyze_compiled
 from repro_torch.core.config import ShapeConfig, get_arch
 from repro_torch.launch import dryrun, perf
@@ -23,7 +24,7 @@ from repro_torch.launch import dryrun, perf
 CELLS = [(arch, mode) for arch in ("qwen1.5-0.5b", "minitron-8b",
                                    "granite-moe-1b-a400m")
          for mode in ("train", "prefill", "decode")] \
-    + [("deepseek-v2-236b", "prefill"), ("deepseek-v2-236b", "decode")]
+    + [("deepseek-v2-236b", mode) for mode in ("train", "prefill", "decode")]
 
 
 @pytest.mark.parametrize("arch,mode", CELLS)
@@ -48,13 +49,20 @@ def test_remat_full_recomputes_as_the_walker(monkeypatch):
 
 
 def test_mla_training_is_refused_on_meta_as_on_the_card(monkeypatch):
-    """K2's backward at MLA's (192, 128) is not ported: the dry run raises
-    where the card would; the plain versions on fake CPU tensors count as
-    the walker."""
+    """MLA training is counted on ``meta`` as the card runs it: the smoke's
+    train step runs K2 and its backward once a layer at (24, 16), the
+    backward noted at its seven products, 2 B Hq pairs (4 hd + 3 hd_v), and
+    the meta count equals the walker's plus :func:`kernel_extra` (the
+    backward's three recomputed products at their widths)."""
     _, tcfg = configs("deepseek-v2-236b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_count(tcfg, "train", device="meta")
-    check_cell(monkeypatch, "deepseek-v2-236b", "train", meta=False)
+    hd, hd_v = attention_widths(tcfg)
+    assert (hd, hd_v) == (24, 16)
+    _, _, meta = check_cell(monkeypatch, "deepseek-v2-236b", "train")
+    a, S = tcfg.attention, SEQ["train"]
+    for op in ("flash_attention", "flash_attention_bwd"):
+        assert meta["by_op"][op]["count"] == tcfg.num_layers
+    assert meta["by_op"]["flash_attention_bwd"]["flops"] == \
+        tcfg.num_layers * 2 * B * a.num_heads * S * S * (4 * hd + 3 * hd_v)
 
 
 @pytest.mark.parametrize("arch,mode", [
@@ -62,8 +70,7 @@ def test_mla_training_is_refused_on_meta_as_on_the_card(monkeypatch):
                               "granite-moe-1b-a400m", "deepseek-v2-236b",
                               "rwkv6-1.6b", "jamba-1.5-large-398b",
                               "internvl2-2b", "seamless-m4t-large-v2")
-    for mode in ("train", "prefill", "decode")
-    if (arch, mode) != ("deepseek-v2-236b", "train")])
+    for mode in ("train", "prefill", "decode")])
 def test_useful_flops_are_among_the_counted(arch, mode):
     """The products a step needs (``perf.useful_flops``) are among those
     its count holds, so ``roofline_fraction`` reads at most 1.  At smoke

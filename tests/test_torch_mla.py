@@ -480,20 +480,39 @@ def test_k2_refuses_a_pair_it_has_no_kernel_for(hd, hd_v):
 
 
 def test_k2_refuses_grad_at_a_value_width_of_its_own():
-    """The backward takes hd_v == hd: under grad mode, a tensor off the CPU
-    at hd 192, hd_v 128 raises NotImplementedError naming ROADMAP.md (no
-    fallback to the plain version); without grad, the same call on meta
-    tensors takes the card's route up to the launch (a dry run)."""
-    q = torch.zeros(1, 2, 4, 192, device="meta", requires_grad=True)
-    k = torch.zeros(1, 2, 4, 192, device="meta")
-    v = torch.zeros(1, 2, 4, 128, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fops.flash_attention(q, k, v)
-    with torch.no_grad():
-        assert fops.flash_attention(q, k, v).shape == (1, 2, 4, 128)
+    """The backward takes MLA's value width of its own: under grad mode, a
+    meta tensor at hd 192, hd_v 128 takes the card's route (forward kernel
+    with its lse, then the backward kernel) up to the launch and returns
+    dq, dk, dv of q's, k's and v's shapes and dtypes; without grad the same
+    call is the plain forward route.  A pair of widths with no kernel is
+    refused by the backward's own check, on every device."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(1, 2, 4, 192, device="meta", dtype=dtype,
+                        requires_grad=True)
+        k = torch.zeros(1, 2, 4, 192, device="meta", dtype=dtype,
+                        requires_grad=True)
+        v = torch.zeros(1, 2, 4, 128, device="meta", dtype=dtype,
+                        requires_grad=True)
+        fwd, bwd_calls = fops.launches, fops.bwd.launches
+        out = fops.flash_attention(q, k, v)
+        assert out.shape == (1, 2, 4, 128) and out.grad_fn is not None
+        grads = torch.autograd.grad(out, (q, k, v), torch.zeros_like(out))
+        assert [(g.shape, g.dtype, g.device.type) for g in grads] == \
+            [(t.shape, dtype, "meta") for t in (q, k, v)]
+        assert (fops.launches, fops.bwd.launches) == (fwd, bwd_calls)
+        with torch.no_grad():
+            assert fops.flash_attention(q, k, v).shape == (1, 2, 4, 128)
     with pytest.raises(ValueError, match="hd_v <= hd"):
         fops.flash_attention(torch.zeros(1, 2, 4, 16), torch.zeros(1, 2, 4, 16),
                              torch.zeros(1, 2, 4, 24))
+    # (128, 64): hd_v in another 64-wide class than hd, a pair with no kernel
+    q, k = torch.zeros(1, 2, 4, 128), torch.zeros(1, 2, 4, 128)
+    v, o = torch.zeros(1, 2, 4, 64), torch.zeros(1, 2, 4, 64)
+    lse = torch.zeros(1, 2, 4)
+    for device in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="one 64-wide class"):
+            fops.bwd.flash_attention_bwd(*(t.to(device) for t in (
+                q, k, v, o, lse, o)))
     # and the CPU's plain version differentiates at hd_v != hd
     q, k, v = (torch.from_numpy(a).requires_grad_()
                for a in _k2_case(1, 2, 6, 6, 0))
@@ -618,3 +637,71 @@ def test_input_specs_of_the_decode_cell():
         (128, 32768, 512), torch.bfloat16)
     assert state["periods"]["sub0"]["attn"]["krope"] == TensorSpec(
         (3, 128, 32768, 64), torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def test_train_card_param_count_matches_jax():
+    """deepseek's TRAIN_CARD (layer 0, MLA and the dense FFN, at every
+    published width) counts what the JAX package counts for the same cut:
+    1,386,562,560, of which the embedding and the untied head 1.049 B, the
+    dense SwiGLU FFN 189 M and MLA (with its norms) the rest, 149 M."""
+    from repro_torch.configs.deepseek_v2_236b import TRAIN_CARD
+    jcfg = dataclasses.replace(jax_get_arch(ARCH).model, num_layers=1)
+    n = tapi.param_count(TRAIN_CARD)
+    assert n == japi.param_count(jcfg) == 1_386_562_560
+    d, v, f = TRAIN_CARD.d_model, TRAIN_CARD.vocab_size, \
+        TRAIN_CARD.moe.d_ff_dense
+    assert 2 * v * d == 1_048_576_000 and 3 * d * f == 188_743_680
+    assert 149e6 < n - 2 * v * d - 3 * d * f < 150e6
+    assert TRAIN_CARD.ffn_kinds() == ["dense"]
+    assert TRAIN_CARD.attention == tconfig.get_arch(ARCH).model.attention
+
+
+def test_train_main_runs_the_smoke_config(tmp_path, capsys):
+    """``launch/train.py`` trains the MLA smoke model on the CPU (the plain
+    attention and its autograd at hd 24, hd_v 16), two steps."""
+    from repro_torch.launch import train as ttrain
+    losses = ttrain.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                          "--steps", "2", "--batch", "2", "--seq", "16",
+                          "--ckpt-dir", str(tmp_path), "--log-every", "1"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert "arch=deepseek-v2-smoke" in capsys.readouterr().out
+    assert (tmp_path / "step_000000002").is_dir()
+
+
+def test_a_stack_cut_to_its_prefix_block_runs():
+    """A stack cut to its dense prefix layer (as ``TRAIN_CARD`` is) has an
+    empty period, which the port runs (the reference's scan over it
+    refuses: no values to scan over).  Its logits equal the reference's
+    two-layer smoke model whose MoE layer adds nothing to the residual
+    stream (its attention's and experts' output projections zeroed) at
+    ``ATOL``; it trains and prefills."""
+    jcfg = dataclasses.replace(_f32(jax_get_arch(ARCH).smoke), num_layers=2)
+    tcfg = dataclasses.replace(_f32(tconfig.get_arch(ARCH).smoke),
+                               num_layers=1)
+    jp = jax.tree.map(np.array, _init(jax.random.key(3), jcfg))  # writable
+    per = jp["stack"]["periods"]["sub0"]
+    for leaf in (per["attn"]["wo"]["w"], per["ffn_moe"]["w_down"],
+                 per["ffn_moe"]["shared"]["w_down"]["w"]):
+        leaf[...] = 0.0
+    tree = {**jp, "stack": {"prefix": jp["stack"]["prefix"]}}
+    tp = params_from_jax(tree, "cpu")
+    tp["stack"]["periods"] = {}
+    assert jax.tree_util.tree_structure(tp) == jax.tree_util.tree_structure(
+        tapi.init_params(torch.Generator().manual_seed(0), tcfg))
+    tokens = np.random.default_rng(4).integers(
+        0, tcfg.vocab_size, (B, T)).astype(np.int32)
+    want, _ = japi.forward(jp, jcfg, {"tokens": tokens}, mode="train",
+                           remat="none")
+    got, _ = tapi.forward(tp, tcfg, {"tokens": torch.from_numpy(tokens)},
+                          remat="none")
+    _close(want, got)
+    loss, _ = tapi.loss_fn(tp, tcfg, {"tokens": torch.from_numpy(tokens)})
+    assert torch.isfinite(loss)
+    logits, cache = tapi.prefill(tp, tcfg, {"tokens": torch.from_numpy(tokens)})
+    assert cache["periods"] == {} and set(cache) == {"prefix", "periods"}
+    _close(np.asarray(want)[:, -1:], logits)

@@ -28,8 +28,11 @@ from repro_torch.optim import adamw as tadamw
 
 TOL = dict(atol=2e-3, rtol=2e-3)
 B, S = 2, 12
-# the dense LM, one with GQA and an untied head, and one with an MoE aux loss
-LOSS_ARCHS = ["qwen1.5-0.5b", "minitron-8b", "granite-moe-1b-a400m"]
+# the dense LM, one with GQA and an untied head, one with an MoE aux loss,
+# and MLA (K2 and its backward at hd 24, hd_v 16) with a dense prefix layer
+# and MoE layers
+LOSS_ARCHS = ["qwen1.5-0.5b", "minitron-8b", "granite-moe-1b-a400m",
+              "deepseek-v2-236b"]
 
 
 def _f32(cfg):
@@ -309,7 +312,8 @@ def test_train_step_matches_jax(compression):
                                        err_msg=path)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "jamba-1.5-large-398b",
+                                  "deepseek-v2-236b"])
 def test_remat_modes_give_equal_grads(arch):
     cfg = _f32(tconfig.get_arch(arch).smoke)
     params = tapi.init_params(torch.Generator().manual_seed(3), cfg)
