@@ -130,7 +130,19 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    rounding; the first 2 layers in f32 on the card against the CPU
    (forward, prefill, decode, one train step) at 2e-3; 3 bf16 steps of
    ``launch/train.py`` (K2 and its backward as in the prefill).  Phase 2
-   holds the kernels at these shapes too.
+   holds the kernels at these shapes too;
+14. qwen2.5-14b whole (48 layers, GQA 40/8 heads of 128, QKV bias, vocab
+   152,064, about 14.8 B params) and then mistral-large-123b cut to its
+   first 16 layers (``CARD``: 96/8 heads of 128, d_ff 28,672, about 23 B
+   params), each in bf16 from random weights: serve 4 requests (prompts
+   of 16-64 tokens, 16 new tokens, 4 slots of 128 positions), admitted
+   token by token (flash-decode once a layer a decode call, at GQA groups
+   5 and 12); profile one decode step; check prefill (flash attention)
+   against token-by-token decode in bf16 against bf16's own rounding and,
+   for qwen2.5-14b on its first 2 layers in f32, at 2e-3; the first 2
+   layers (mistral: 1) in f32 on the card against the CPU at 2e-3; and
+   count qwen2.5-14b's decode step and a prefill of 4 x 128 by the dry run
+   against the card (phase 13).  Phase 2 holds K1 and K2 at these shapes.
 
 The last line is ``{"ok": true, "device": {...}}``; ``--out`` also writes
 every number of the run to a JSON file.  The script needs a CUDA
@@ -2650,7 +2662,8 @@ def card_vs_cpu(torch, np, cfg32, params32, device, kernels, steps, api, batch,
         errs[key], b = _excess(torch, card[key], want_t, tol)
         if b:
             bad.append(key)
-    print(f"  2 layers in f32, card vs CPU (B={B}, {S} positions, {n_new} "
+    print(f"  {cfg32.num_layers} layers in f32, card vs CPU (B={B}, {S} "
+          f"positions, {n_new} "
           f"decode steps): max err " + ", ".join(
               f"{k} {e:.2e}" for k, e in errs.items())
           + f" (atol {tol['atol']}, rtol {tol['rtol']}); CPU {cpu_s:.1f} s",
@@ -2750,6 +2763,140 @@ def phase_stub_model(torch, np, cfg, device, kernels, steps, api, train,
                 held_gb=held_gb, serve=served, vs_forward=vs_forward,
                 vs_cpu=vs_cpu, train_step_vs_cpu=step_vs_cpu, train=trained,
                 train_peak_gb=peak_gb, phase_s=phase_s, secs=secs)
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the dense GQA models of head dim 128, qwen2.5-14b whole and
+# mistral-large-123b cut to its first 16 layers, bf16
+# ---------------------------------------------------------------------------
+
+
+def phase_dense_gqa(torch, np, cfg, device, kernels, steps, api, serve, *,
+                    f32_layers, prefill_f32=True, cost_cells=None):
+    """Phase 14 for one dense GQA model of ``cfg`` (bf16, random weights
+    from seed 0): serve 4 requests (prompts of 16-64 tokens, 16 new tokens,
+    4 slots, 128 positions; admission token by token, so flash-decode runs
+    once a layer a decode call and flash attention never); profile the
+    decode step of the 4 slots at positions 96, 80, 64 and 48 (5 steps);
+    prefill = decode, 2 x 48 tokens, in bf16 against bf16's own rounding;
+    the first ``f32_layers`` layers in f32: prefill = decode at 2e-3
+    (``prefill_f32``) and the card against the CPU (forward, prefill, 4
+    decode steps) at 2e-3.  ``cost_cells``, a
+    list, gains the decode step of 4 slots over 128 positions and a
+    prefill of 4 x 128, each counted by the dry run against the card."""
+    t_phase = time.perf_counter()
+    pos = (96, 80, 64, 48)
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    gbytes = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    del leaves
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    a, L = cfg.attention, cfg.num_layers
+    print(f"  {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+          f"{a.num_heads}/{a.num_kv_heads} heads of {a.head_dim} (group "
+          f"{a.num_heads // a.num_kv_heads}), QKV bias {a.qkv_bias}, "
+          f"rope_theta {a.rope_theta:g}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; {n_params / 1e9:.3f} B {cfg.param_dtype} "
+          f"params, {gbytes:.2f} GB; init {init_s:.1f} s, peak {peak_gb:.1f} "
+          f"GB with {held_gb:.2f} GB held before it", flush=True)
+    secs, mark = {}, [time.perf_counter()]
+
+    def lap(name):
+        secs[name] = time.perf_counter() - mark[0]
+        mark[0] = time.perf_counter()
+
+    served = phase_serve(torch, np, cfg, params, device, kernels, serve,
+                         max_len=128, n_requests=4, max_new=16,
+                         prompt_range=(16, 65))
+    want = {name: 0 for name in kernels}
+    want["decode_attention"] = L * served["decode_calls"]
+    check(served["launches"] == want, f"serving {cfg.name} launched "
+          f"{served['launches']}, want {want} ({L} layers, "
+          f"{served['decode_calls']} decode calls, admission token by token)")
+    lap("serve")
+    print(f"  decode step over a 128-position cache (4 slots at "
+          f"{', '.join(map(str, pos))}), 5 steps:")
+    prof = phase_profile(torch, cfg, params, device, steps, api, max_len=128,
+                         n=5, pos=pos)
+    lap("profile")
+    print(f"  prefill = decode, 2 x 48 tokens, in bf16 as served, against "
+          "bf16's own rounding", flush=True)
+    reset_counts(kernels)
+    pre = phase_prefill_bf16(torch, np, cfg, params, device, steps, api,
+                             length=48)
+    n = launches_of(kernels)
+    want = {name: 0 for name in kernels}
+    want.update(flash_attention=2 * L, decode_attention=48 * L)
+    check(n == want, f"prefill = decode launched {n}, want {want}")
+    torch.cuda.empty_cache()
+    lap("prefill = decode bf16")
+    if cost_cells is not None:
+        from repro_torch.core.config import ShapeConfig
+        from repro_torch.kernels import sm_count
+        sms = sm_count(torch.device(device))
+        print(f"== 13f. the count against the card: {cfg.name} bf16 decode "
+              "(4 slots, 128 positions)", flush=True)
+        state = api.allocate_decode_state(cfg, 4, 128, device)
+        cost_cells.append(phase_cost_cell(
+            torch, f"{cfg.name} decode B 4 S 128", cfg,
+            ShapeConfig("decode", 128, 4, "decode"),
+            steps.make_serve_step(cfg),
+            (params, state, torch.arange(1, 5, dtype=torch.int32,
+                                         device=device),
+             torch.tensor(pos, dtype=torch.int32, device=device)),
+            kernels, want=("decode_attention",),
+            scratch=kernels["decode_attention"].scratch_bytes(
+                torch.empty(4, a.num_heads, a.head_dim, dtype=torch.bfloat16,
+                            device="meta"),
+                torch.empty(4, a.num_kv_heads, 128, a.head_dim,
+                            dtype=torch.bfloat16, device="meta"), sms)))
+        del state
+        print(f"== 13g. the count against the card: {cfg.name} bf16 prefill "
+              "4 x 128", flush=True)
+        cost_cells.append(phase_cost_cell(
+            torch, f"{cfg.name} prefill 4 x 128", cfg,
+            ShapeConfig("prefill", 128, 4, "prefill"),
+            steps.make_prefill_step(cfg),
+            (params, {"tokens": _prompts(torch, np, cfg, device, 4, 128)}),
+            kernels, want=("flash_attention",)))
+        torch.cuda.empty_cache()
+        lap("cost cells")
+    cfg32 = dataclasses.replace(cfg, num_layers=f32_layers,
+                                param_dtype="float32", compute_dtype="float32")
+    p32 = first_layers(torch, params, f32_layers)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre32 = None
+    if prefill_f32:
+        print(f"  prefill = decode, 2 x 48 tokens, the first {f32_layers} "
+              "layers in f32 at 2e-3", flush=True)
+        pre32 = phase_prefill(torch, np, cfg32, p32, device, kernels,
+                              {"flash_attention": f32_layers}, steps, api,
+                              batch=2, length=48)
+        lap("prefill = decode f32")
+    small = {"tokens": _prompts(torch, np, cfg, torch.device("cpu"), 2, 24)}
+    vs_cpu = card_vs_cpu(torch, np, cfg32, p32, device, kernels, steps, api,
+                         small, {"flash_attention": 2 * f32_layers,
+                                 "decode_attention": 4 * f32_layers})
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("card vs CPU")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  {cfg.name}: {phase_s:.1f} s for the model: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()), flush=True)
+    return dict(params=n_params, gbytes=gbytes, init_s=init_s,
+                peak_gb=peak_gb, held_gb=held_gb, serve=served, profile=prof,
+                prefill_bf16=pre, prefill_f32=pre32, vs_cpu=vs_cpu,
+                phase_s=phase_s, secs=secs)
 
 
 def main(argv=None) -> int:
@@ -2990,6 +3137,20 @@ def main(argv=None) -> int:
             rows["decode_attention"].append(decode_case(
                 torch, F, dops, 4, Hq, 8, 512, 128, [17, 130, 256, 511],
                 dtype, gen))
+    # phase 14's shapes, bf16: the decode step of qwen2.5-14b (GQA 40/8,
+    # group 5) and of mistral-large-123b (96/8, group 12), hd 128, 4 slots
+    # of a 128-position cache at the profiled step's kv_len, and
+    # qwen2.5-14b's prefill of 4 x 128 (causal, 40/8, hd 128)
+    slice14 = {
+        "k1 qwen2.5-14b decode": decode_case(
+            torch, F, dops, 4, 40, 8, 128, 128, [97, 81, 65, 49], "bfloat16",
+            gen),
+        "k1 mistral-large-123b decode": decode_case(
+            torch, F, dops, 4, 96, 8, 128, 128, [97, 81, 65, 49], "bfloat16",
+            gen),
+        "k2 qwen2.5-14b prefill": flash_case(
+            torch, F, fops, 4, 40, 8, 128, 128, 128, True, 0,
+            dtype="bfloat16", gen=gen)}
     # the scans' backwards.  K4 at rwkv6-1.6b's training shape (B 4 x 32
     # heads of 64, S 512) in f32 and bf16, and at both decay extremes held
     # to the f64 recurrence; a ragged last chunk with hd 30, hd 128 and a
@@ -3058,6 +3219,8 @@ def main(argv=None) -> int:
     for key, rs in slice12.items():
         for row in rs:
             _print_row(key, row)
+    for key, row in slice14.items():
+        _print_row(key, row)
     # each kernel at the shape the main paths give it (f32, as served)
     main_rows = {
         "decode_attention": decode_case(torch, F, dops, 4, 16, 16, 512, 64,
@@ -3485,6 +3648,29 @@ def main(argv=None) -> int:
     phase12_s = time.perf_counter() - t12
     print(f"phase 12: {phase12_s:.1f} s", flush=True)
 
+    # ---- 14. qwen2.5-14b whole and mistral-large-123b CARD, bf16 --------
+    from repro_torch.configs.mistral_large_123b import CARD as mcfg
+    t14 = time.perf_counter()
+    dense_kw = dict(torch=torch, np=np, device=device, kernels=kernels,
+                    steps=steps, api=api, serve=serve)
+    qcfg = get_arch("qwen2.5-14b").model
+    print(f"== 14a. serve {qcfg.name} at full width and depth "
+          f"({qcfg.num_layers} layers, bf16): 4 requests of 16-64 prompt "
+          "tokens, 16 new tokens, 4 slots of 128 positions; one decode step "
+          "profiled; prefill = decode in bf16 and, on the first 2 layers in "
+          "f32, at 2e-3; 2 layers in f32 card = CPU; the decode step and a "
+          "prefill counted (13f, 13g)", flush=True)
+    qwen25 = phase_dense_gqa(cfg=qcfg, f32_layers=2, cost_cells=cost_cells,
+                             **dense_kw)
+    print(f"== 14b. serve {mcfg.name} CARD (its first {mcfg.num_layers} of "
+          "88 layers at full width, bf16): the same traffic; one decode step "
+          "profiled; prefill = decode in bf16; the first layer in f32 card = "
+          "CPU", flush=True)
+    mistral = phase_dense_gqa(cfg=mcfg, f32_layers=1, prefill_f32=False,
+                              **dense_kw)
+    phase14_s = time.perf_counter() - t14
+    print(f"phase 14: {phase14_s:.1f} s", flush=True)
+
     # ---- 13. the count against the card (run inside the phases above) -----
     phase13_s = sum(c["phase_s"] for c in cost_cells)
     print(f"== 13. the count against the card, {len(cost_cells)} cells in "
@@ -3576,12 +3762,22 @@ def main(argv=None) -> int:
              vlm["train"]["launches"]["flash_attention_bwd"]),
             ("flash_attention_bwd", "bwd seamless train",
              audio["train"]["launches"]["flash_attention_bwd"])):
-        sub_row = next(r for r in slice12[key] if r["dtype"] == "bfloat16")
-        row_of[name][key.split(" ", 1)[1]] = dict(
-            {k: sub_row[k] for k in (
-                "shape", "dtype", "max_abs_err", "ms", "wall_ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms", "design_bound_ms")
-             if k in sub_row}, launches=launches_12)
+        row_of[name][key.split(" ", 1)[1]] = sub_row_of(
+            next(r for r in slice12[key] if r["dtype"] == "bfloat16"),
+            launches_12)
+    # phase 14's shapes (bf16): K1 with its launches in phase 14's serving,
+    # K2 with its launches in the counted prefill of 4 x 128 (cell 13g)
+    prefill_cell = next(c for c in cost_cells
+                        if c["cell"] == f"{qcfg.name} prefill 4 x 128")
+    for name, key, launches_14 in (
+            ("decode_attention", "k1 qwen2.5-14b decode",
+             qwen25["serve"]["launches"]["decode_attention"]),
+            ("decode_attention", "k1 mistral-large-123b decode",
+             mistral["serve"]["launches"]["decode_attention"]),
+            ("flash_attention", "k2 qwen2.5-14b prefill",
+             prefill_cell["launches"]["flash_attention"])):
+        row_of[name][key.split(" ", 1)[1]] = sub_row_of(slice14[key],
+                                                        launches_14)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
@@ -3612,6 +3808,8 @@ def main(argv=None) -> int:
              "prefill_deepseek_f32": pre_d32, "mla_block": block_d,
              "slice12_cases": slice12, "internvl2": vlm,
              "seamless": audio, "phase12_s": phase12_s,
+             "slice14_cases": slice14, "qwen2.5-14b": qwen25,
+             "mistral-large-123b CARD": mistral, "phase14_s": phase14_s,
              "cost_cells": cost_cells, "phase13_s": phase13_s,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3621,6 +3819,15 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def sub_row_of(row, launches) -> dict:
+    """A phase-2 row's numbers as a sub-row of the kernels line, with the
+    kernel's launches at that shape in the main path's run."""
+    return dict({k: row[k] for k in (
+        "shape", "dtype", "max_abs_err", "ms", "wall_ms", "plain_ms",
+        "bound_ms", "bound_by", "library_ms", "design_bound_ms")
+        if k in row}, launches=launches)
 
 
 def _leaves(tree):

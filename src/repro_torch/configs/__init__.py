@@ -7,7 +7,9 @@ from repro_torch.configs import (  # noqa: F401
     internvl2_2b,
     jamba_1_5_large_398b,
     minitron_8b,
+    mistral_large_123b,
     qwen1_5_0_5b,
+    qwen2_5_14b,
     rwkv6_1_6b,
     seamless_m4t_large_v2,
 )

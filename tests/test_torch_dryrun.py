@@ -22,7 +22,8 @@ from repro_torch.core.config import ShapeConfig, get_arch
 from repro_torch.launch import dryrun, perf
 
 CELLS = [(arch, mode) for arch in ("qwen1.5-0.5b", "minitron-8b",
-                                   "granite-moe-1b-a400m")
+                                   "granite-moe-1b-a400m", "qwen2.5-14b",
+                                   "mistral-large-123b")
          for mode in ("train", "prefill", "decode")] \
     + [("deepseek-v2-236b", mode) for mode in ("train", "prefill", "decode")]
 

@@ -1,9 +1,11 @@
 """Port parity for the model path: repro_torch.models against repro.models.
 
-The JAX params of the qwen1.5 (MHA, tied head, QKV bias) and minitron (GQA
-group 2, layernorm, relu², untied head) smoke configs are converted key for
-key; forward, prefill and per-slot decode agree with JAX well inside the
-reference's own 2e-3 (``tests/test_models.py``).  Each arch's JAX functions
+The JAX params of the qwen1.5 (MHA, tied head, QKV bias), minitron (GQA
+group 2, layernorm, relu², untied head), qwen2.5 (GQA, QKV bias, untied
+head, rope_theta 1e6 at full size) and mistral-large (GQA, untied head)
+smoke configs are converted key for key; forward, prefill and per-slot
+decode agree with JAX well inside the reference's own 2e-3
+(``tests/test_models.py``).  Each arch's JAX functions
 compile once per module.
 """
 import dataclasses
@@ -15,13 +17,15 @@ import pytest
 import torch
 
 from repro.core.config import get_arch as jax_get_arch
+from repro.core.config import list_archs as jax_list_archs
 from repro.models import api as japi
 from repro_torch.convert import params_from_jax
 from repro_torch.core import config as tconfig
 from repro_torch.models import api as tapi
 from repro_torch.models import attention as tatt
 
-ARCHS = ["qwen1.5-0.5b", "minitron-8b"]
+ARCHS = ["qwen1.5-0.5b", "minitron-8b", "qwen2.5-14b",
+         "mistral-large-123b"]
 # every arch the port registers (rwkv6's parity tests: test_torch_rwkv6.py;
 # jamba's: test_torch_jamba.py; granite-moe's: test_torch_moe.py;
 # dilated-vgg's: test_torch_dilated_vgg.py; deepseek-v2's: test_torch_mla.py;
@@ -80,8 +84,8 @@ def test_configs_are_copies():
         assert (j.shapes, j.skip_shapes, j.source) == \
             (t.shapes, t.skip_shapes, t.source)
     assert tconfig.list_archs() == sorted(PORTED_ARCHS)
-    with pytest.raises(KeyError, match="available"):
-        tconfig.get_arch("qwen2.5-14b")
+    # every arch of the reference is ported
+    assert tconfig.list_archs() == jax_list_archs()
 
 
 def test_params_convert_key_for_key(pair):
