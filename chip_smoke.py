@@ -50,9 +50,10 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    check the last logits and the cache against the decode path fed the
    same prompts;
    then train: (a) one train step of qwen1.5-0.5b cut to 2 layers at full
-   width on the card and on the CPU from the same params and batch (loss,
-   grad norm, params after the step), and the same step under remat "dots"
-   and "full"; (b) qwen1.5-0.5b at full width and depth in f32, batch 4 x
+   width on the card, and the same step's loss and clipped gradient on the
+   CPU, from the same params and batch (loss, grad norm, every gradient,
+   and the params after the step against the CPU's AdamW on the card's
+   gradient), and the same step under remat "dots" and "full"; (b) qwen1.5-0.5b at full width and depth in f32, batch 4 x
    512, 20 steps through ``launch/train.py``'s ``main`` with a checkpoint:
    the loss must fall, every step runs the flash-attention kernel and its
    backward once per layer, one step is profiled; (b2) the same in bf16
@@ -62,8 +63,9 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    flash-decode still refuses grad mode; (c2) one train step of rwkv6-1.6b
    cut to 2 layers at full width on the card and on the CPU, and the same
    step under remat "dots" and "full", and (c3) jamba's Mamba mixer at full width, every gradient
-   within 2e-3 of the leaf's largest; (d) rwkv6-1.6b at full width and
-   depth in f32, batch 4 x 512, 20 steps through ``main`` (the WKV scan
+   within 2e-3 of the leaf's largest; (d) rwkv6-1.6b at full width, its
+   first 12 of 24 layers, in f32, batch 4 x 512, 20 steps through
+   ``main`` (the WKV scan
    and its backward once per layer a step; the loss must fall); (e)
    jamba-1.5-large-398b cut to its first layer (``TRAIN_CARD``: Mamba
    mixer and dense FFN at every published width) in bf16, batch 2 x 512,
@@ -129,7 +131,8 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    prefill and decode against one forward in bf16 against bf16's own
    rounding; the first 2 layers in f32 on the card against the CPU
    (forward, prefill, decode, one train step) at 2e-3; 3 bf16 steps of
-   ``launch/train.py`` (K2 and its backward as in the prefill).  Phase 2
+   ``launch/train.py`` at half depth (12 layers; 12 + 12) (K2 and its
+   backward as in the prefill).  Phase 2
    holds the kernels at these shapes too;
 14. qwen2.5-14b whole (48 layers, GQA 40/8 heads of 128, QKV bias, vocab
    152,064, about 14.8 B params) and then mistral-large-123b cut to its
@@ -142,7 +145,24 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    for qwen2.5-14b on its first 2 layers in f32, at 2e-3; the first 2
    layers (mistral: 1) in f32 on the card against the CPU at 2e-3; and
    count qwen2.5-14b's decode step and a prefill of 4 x 128 by the dry run
-   against the card (phase 13).  Phase 2 holds K1 and K2 at these shapes.
+   against the card (phase 13).  Phase 2 holds K1 and K2 at these shapes;
+15. the mesh (``repro_torch.sharding``, ``launch/mesh.py``): (a) a real
+   one-rank NCCL group (a ``HashStore``, no TCP) and a ("data", "model")
+   mesh of (1, 1) on the card: qwen1.5-0.5b at full width and depth in
+   f32, its params distributed by ``shardings_for``, prefills 4 x 128 and
+   decodes 8 steps, then takes one train step at 2 x 256 in f32 and one
+   with bf16 products (f32 params, AdamW at its full rate from step 1);
+   each output equals the same call without a mesh (the tolerance
+   printed), each param's move the same within lr / 100 in f32 (lr / 2
+   with bf16 products), and K1, K2 and K2's backward launch as often; the
+   host wall
+   of a decode step with and without the mesh (DTensor's dispatch); (b)
+   K1's log-sum-exp against its plain version at phase 2's K1 shape and
+   at qwen2.5-14b's (bf16, 40/8 heads of 128), and K1 over the cache cut
+   along its keys into 2 and 16 shards (one holding no valid key), merged
+   by log-sum-exp, against K1 over the whole cache; (c) qwen1.5-0.5b
+   decode_32k counted as rank 0 of the (16, 16) mesh in a virtual group:
+   per-device GFLOP, GB, collective GB by kind and ``t_collective``.
 
 The last line is ``{"ok": true, "device": {...}}``; ``--out`` also writes
 every number of the run to a JSON file.  The script needs a CUDA
@@ -208,11 +228,38 @@ SCAN_BWD_REL = 1e-5
 # (ragged = solo, 2-slot server = solo) at 1e-4, in f32 or bf16
 PREFILL_TOL = dict(atol=2e-3, rtol=2e-3)
 SOLO_TOL = dict(atol=1e-4, rtol=0.0)
+# the scans' plain versions step through the sequence one launch at a time
+# (up to 0.6 s a call at phase 2's longest shapes): one warm-up and one
+# timed call each, with and without the sleep
+SCAN_PLAIN_REPS = (1, 1, 1)
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+T_START = time.perf_counter()
+# host seconds spent in each kind of phase 2's cases, by function name
+CASE_S: dict = {}
+
+
+def section(title: str) -> None:
+    """Print a phase's header with the seconds since the script started."""
+    print(f"{title} [{time.perf_counter() - T_START:.1f} s]", flush=True)
+
+
+def timed_case(fn):
+    """``fn`` adding its seconds to ``CASE_S[fn.__name__]``."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            CASE_S[fn.__name__] = (CASE_S.get(fn.__name__, 0.0)
+                                   + time.perf_counter() - t0)
+    return run
 
 
 @functools.lru_cache(maxsize=None)
@@ -228,9 +275,10 @@ def _cycles_per_ms(torch) -> float:
     return 20_000_000 / start.elapsed_time(end)
 
 
-def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> tuple:
+def time_ms(torch, fn, reps: int = 7, inner: int = 10,
+            warmup: int = 3) -> tuple:
     """(device ms, wall ms) of one call: medians over ``reps`` of the mean
-    of ``inner`` back-to-back calls, by CUDA events, after warm-up.
+    of ``inner`` back-to-back calls, by CUDA events, after ``warmup`` calls.
 
     The device figure enqueues each batch behind ``torch.cuda._sleep`` long
     enough to cover the host's enqueue of the batch (twice the time the host
@@ -238,7 +286,7 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> tuple:
     alone.  The wall figure has no sleep: below ~0.05 ms a call it reads the
     host's time per call (checks, allocation, the launch); it is the only
     figure this script gave before it timed the device."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -267,7 +315,8 @@ def time_ms(torch, fn, reps: int = 7, inner: int = 10) -> tuple:
 
 def _timings(torch, kernel, plain, library, plain_reps=(7, 10)) -> dict:
     """Device and wall ms of the kernel, its plain version and the library
-    call (None where there is none)."""
+    call (None where there is none); ``plain_reps`` are ``time_ms``'s reps,
+    inner calls and, optionally, warm-up calls for the plain version."""
     ms, wall = time_ms(torch, kernel)
     plain_ms, plain_wall = time_ms(torch, plain, *plain_reps)
     lib_ms, lib_wall = time_ms(torch, library) if library else (None, None)
@@ -410,6 +459,7 @@ def _within(torch, got, want, tol) -> float:
     return err
 
 
+@timed_case
 def decode_case(torch, F, dops, B, Hq, Hkv, S, hd, kv_len, dtype, gen):
     """One flash-decode check + timings.  Returns the row for the table."""
     dt = getattr(torch, dtype)
@@ -458,6 +508,7 @@ def sdpa_backends(torch, library) -> dict:
     return out
 
 
+@timed_case
 def flash_case(torch, F, fops, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
                dtype, gen, hd_v=None):
     """One flash-attention check + timings; ``hd_v`` (V's and the output's
@@ -502,6 +553,7 @@ def flash_case(torch, F, fops, B, Hq, Hkv, Sq, Sk, hd, causal, q_offset,
     return row
 
 
+@timed_case
 def mla_case(torch, F, mops, B, H, L, R, T, kv_len, dtype, gen):
     """One absorbed-MLA-decode check + timings.  The library call is SDPA on
     the same function: the heads as the query rows of one KV head, q =
@@ -573,6 +625,7 @@ def mla_case(torch, F, mops, B, H, L, R, T, kv_len, dtype, gen):
         route=route, rate=rate, **cores, **_bound(nbytes, flops, dtype))
 
 
+@timed_case
 def flash_bwd_case(torch, F, fops, bops, B, Hq, Hkv, Sq, Sk, hd, causal,
                    q_offset, dtype, gen, compare=False, profile=False,
                    hd_v=None, via=None):
@@ -713,6 +766,7 @@ def _wkv_f64(torch, r, k, v, logw, u, state0):
     return torch.stack(ys, dim=1), s
 
 
+@timed_case
 def rwkv_case(torch, kops, N, S, hd, dtype, gen, logw_value=None, f64=False,
               profile=False):
     """One WKV-scan check + timings, inputs drawn as in
@@ -758,10 +812,12 @@ def rwkv_case(torch, kops, N, S, hd, dtype, gen, logw_value=None, f64=False,
     return dict(
         shape=shape, dtype=dtype, max_abs_err=err, **extra,
         **_timings(torch, lambda: kops.rwkv6_scan(*args),
-                   lambda: kops.rwkv6_scan_ref(*args), None, plain_reps=(5, 2)),
+                   lambda: kops.rwkv6_scan_ref(*args), None,
+                   plain_reps=SCAN_PLAIN_REPS),
         **_bound(nbytes, flops, "float32", design))
 
 
+@timed_case
 def ssm_case(torch, sops, Bz, S, di, ds, dtype, gen, h0_random=True,
              in_place=False, profile=False):
     """One selective-scan check + timings: u, B, C in ``dtype`` and dt in
@@ -805,7 +861,8 @@ def ssm_case(torch, sops, Bz, S, di, ds, dtype, gen, h0_random=True,
         + (" h_out=h0" if in_place else ""),
         dtype=dtype, max_abs_err=err, **extra,
         **_timings(torch, kernel,
-                   lambda: sops.ssm_scan_ref(*args), None, plain_reps=(5, 2)),
+                   lambda: sops.ssm_scan_ref(*args), None,
+                   plain_reps=SCAN_PLAIN_REPS),
         **_bound(nbytes, flops, "float32"))
 
 
@@ -835,6 +892,7 @@ def _bwd_checks(torch, got, want, auto, path, again, dtypes) -> tuple:
     return err, err_auto
 
 
+@timed_case
 def rwkv_bwd_case(torch, kops, kbops, N, S, hd, dtype, gen, logw_value=None,
                   f64=False, profile=False):
     """One check of the WKV-scan backward kernel + timings, inputs drawn as
@@ -898,10 +956,11 @@ def rwkv_bwd_case(torch, kops, kbops, N, S, hd, dtype, gen, logw_value=None,
         **extra,
         **_timings(torch, kernel,
                    lambda: kbops.ref.rwkv6_scan_bwd_ref(*args, dout, dstate),
-                   None, plain_reps=(3, 1)),
+                   None, plain_reps=SCAN_PLAIN_REPS),
         **_bound(nbytes, flops, "float32", design))
 
 
+@timed_case
 def ssm_bwd_case(torch, sops, sbops, Bz, S, di, ds, dtype, gen,
                  profile=False):
     """One check of the selective-scan backward kernel + timings, inputs
@@ -951,7 +1010,7 @@ def ssm_bwd_case(torch, sops, sbops, Bz, S, di, ds, dtype, gen,
         err_vs_autograd=err_auto, checkpoint_mb=ckpt_bytes / 1e6, **extra,
         **_timings(torch, kernel,
                    lambda: sbops.ref.ssm_scan_bwd_ref(*args, dy, dh), None,
-                   plain_reps=(3, 1)),
+                   plain_reps=SCAN_PLAIN_REPS),
         **_bound(nbytes, flops, "float32", design))
 
 
@@ -1225,11 +1284,13 @@ def phase_cost_cell(torch, name, cfg, shape, step, args, kernels, want,
 
 def phase_profile(torch, cfg, params, device, steps, api, slots=4,
                   max_len=512, n=10, pos=(300, 200, 100, 50),
-                  random_cache=False):
-    """Where one decode step's time goes: host wall time per step without
-    the profiler, and device kernel time per step from torch.profiler.  The
-    slots decode at ``pos`` in a cache of ``max_len`` positions, zeros or
-    (``random_cache``) normal draws."""
+                  random_cache=False, n_prof=3):
+    """Where one decode step's time goes: host wall time per step over ``n``
+    steps without the profiler, and device kernel time per step over
+    ``n_prof`` steps from torch.profiler (device activity only: the host's
+    side of the step is the wall time).  The slots decode at ``pos`` in a
+    cache of ``max_len`` positions, zeros or (``random_cache``) normal
+    draws."""
     decode = steps.make_serve_step(cfg)
     st = api.allocate_decode_state(cfg, slots, max_len, device)
     if random_cache:
@@ -1252,12 +1313,11 @@ def phase_profile(torch, cfg, params, device, steps, api, slots=4,
         step()
     step_ms = (time.perf_counter() - t0) / n * 1e3
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
             step()
         torch.cuda.synchronize()
-    kernels = {key: (us / n / 1e3, count / n)
+    kernels = {key: (us / n_prof / 1e3, count / n_prof)
                for key, (us, count) in device_kernels(prof).items()}
     device_ms = sum(ms for ms, _ in kernels.values())
     launches = sum(c for _, c in kernels.values())
@@ -1515,11 +1575,13 @@ def _grads_of(adamw, state, b1):
 
 
 def _leaf_errs(got, want):
-    """{path: max |got - want| over max |want|} of two {path: tensor}."""
+    """{path: max |got - want| over max |want|} of two {path: tensor},
+    taken where ``got`` lies (``want`` is moved there: the same numbers)."""
     out = {}
     for path, w in want.items():
+        w = w.to(got[path].device)
         scale = w.abs().max().item()
-        err = (got[path].cpu() - w.cpu()).abs().max().item()
+        err = (got[path] - w).abs().max().item()
         out[path] = err / scale if scale > 0 else (0.0 if err == 0 else
                                                     float("inf"))
     return out
@@ -1528,43 +1590,59 @@ def _leaf_errs(got, want):
 def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
                             OptimizerConfig, pipeline, want, batch=2, seq=256,
                             remat_modes=("dots", "full"), batch_of=None):
-    """One train step on the card and on the CPU from the same params and
-    batch (f32).  The gradient of every leaf (``m`` after one step from zero
-    moments is 0.1 times it) agrees to 2e-3 of the leaf's largest value
-    (tests/test_models.py's bound), and so do the loss and grad norm.  The
-    card's params after the step equal the CPU's AdamW applied to the card's
-    own gradient to 1e-6: comparing them with the CPU's step instead could
-    not fail, since Adam's first step moves each element by about lr
-    whatever its gradient's size.  The card's step must launch the kernels
+    """One train step on the card, and its loss and clipped gradient on the
+    CPU (``api.loss_fn``, autograd and ``adamw.clip_by_global_norm``, as the
+    step computes them), from the same params (drawn on the card) and batch
+    (f32).  The gradient of every leaf (on the card ``m`` after one step
+    from zero moments, which is 0.1 times it) agrees to 2e-3 of the leaf's
+    largest value (tests/test_models.py's bound), and so do the loss and
+    grad norm.  The card's params after the step equal the CPU's AdamW
+    applied to the card's own gradient to 1e-6: comparing them with a CPU
+    step instead could not fail, since Adam's first step moves each element
+    by about lr whatever its gradient's size.  The card's step must launch the kernels
     ``want`` names, each the given number of times, and no other.  Then the
     same step under each of ``remat_modes`` on the card gives every leaf's
     gradient to 1e-5.  ``batch_of(tokens)`` makes the step's batch (on the
     CPU) from the pipeline's tokens; by default the tokens alone."""
     opt_cfg = OptimizerConfig(lr=3e-4, warmup_steps=5, total_steps=30)
-    cpu_params = api.init_params(torch.Generator().manual_seed(0), cfg)
+    # drawn on the card: a CPU generator takes ~10 s a billion draws
+    cpu_params = _to(torch, api.init_params(
+        torch.Generator(device=device).manual_seed(0), cfg),
+        torch.device("cpu"))
     data = pipeline.SyntheticTokenPipeline(pipeline.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch))
     tokens = torch.from_numpy(data.batch_at(0)["tokens"])
     batch_cpu = (batch_of or (lambda t: {"tokens": t}))(tokens)
     results = {}
-    for where in ("cuda", "cpu"):
-        dev = device if where == "cuda" else torch.device("cpu")
-        params = _to(torch, cpu_params, dev)
-        step = steps.make_train_step(cfg, opt_cfg, remat="none")
-        reset_counts(kernels)
-        t0 = time.perf_counter()
-        params, state, metrics = step(params, adamw.init_opt_state(
-            params, opt_cfg), {k: v.to(dev) for k, v in batch_cpu.items()})
-        loss = float(metrics["loss"])
-        secs = time.perf_counter() - t0
-        results[where] = dict(params=params, loss=loss, s=secs,
-                              grads=_grads_of(adamw, state, opt_cfg.b1),
-                              grad_norm=float(metrics["grad_norm"]),
-                              lr=float(metrics["lr"]),
-                              launches=launches_of(kernels),
-                              plain_calls=sum(ops.ref.calls
-                                              for ops in kernels.values()))
+    params = _to(torch, cpu_params, device)
+    step = steps.make_train_step(cfg, opt_cfg, remat="none")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    params, state, metrics = step(params, adamw.init_opt_state(
+        params, opt_cfg), {k: v.to(device) for k, v in batch_cpu.items()})
+    results["cuda"] = dict(params=params, loss=float(metrics["loss"]),
+                           s=time.perf_counter() - t0,
+                           grads=_grads_of(adamw, state, opt_cfg.b1),
+                           grad_norm=float(metrics["grad_norm"]),
+                           launches=launches_of(kernels),
+                           plain_calls=sum(ops.ref.calls
+                                           for ops in kernels.values()))
+    # the CPU's half of the same step: the update it would apply after the
+    # clip is not compared (AdamW runs on the CPU once, below, on the card's
+    # gradient)
+    t0 = time.perf_counter()
+    loss, grads = _loss_and_grads(torch, api, adamw, cfg, cpu_params,
+                                  batch_cpu)
+    clipped, norm = adamw.clip_by_global_norm(
+        adamw.tree_like(cpu_params, grads), opt_cfg.grad_clip)
+    results["cpu"] = dict(loss=loss, s=time.perf_counter() - t0,
+                          grads=dict(adamw.named_leaves(clipped)),
+                          grad_norm=float(norm))
+    del grads, clipped
     gpu, cpu = results["cuda"], results["cpu"]
+    # the CPU's gradients compared on the card: the same differences, with
+    # no pass of the host over a model's worth of floats
+    cpu["grads"] = {path: g.to(device) for path, g in cpu["grads"].items()}
     check(gpu["launches"] == {name: want.get(name, 0) for name in kernels}
           and gpu["plain_calls"] == 0,
           f"the card's train step launched {gpu['launches']}, want {want}")
@@ -1584,7 +1662,7 @@ def phase_train_step_vs_cpu(torch, cfg, device, kernels, steps, api, adamw,
     adamw.adamw_update(ref, adamw.tree_like(ref, {
         path: g.cpu() for path, g in gpu["grads"].items()}),
         adamw.init_opt_state(ref, opt_cfg), opt_cfg)
-    p_err = max((a.cpu() - b).abs().max().item() for a, b in
+    p_err = max((a - b.to(a.device)).abs().max().item() for a, b in
                 zip(adamw.leaves(gpu["params"]), adamw.leaves(ref)))
     print(f"one step, {cfg.num_layers} layers at full width, B={batch} "
           f"S={seq}: loss card {gpu['loss']!r} / CPU {cpu['loss']!r} "
@@ -2164,8 +2242,7 @@ def phase_dilated_vgg(torch, cfg, device, api, steps, adamw, OptimizerConfig,
             device_ops=ops, idle=1 - dev_ms / fwd_wall,
             top=sorted(((k, v[0], v[1]) for k, v in kern.items()),
                        key=lambda r: -r[1])[:10])
-        print("== 13c. the count against the card: the bf16 forward",
-              flush=True)
+        section("== 13c. the count against the card: the bf16 forward")
         out["cost"] = phase_cost_cell(
             torch, f"{cfg.name} forward {H} x {W}", cfg, None,
             lambda p, b: api.forward(p, cfg, b)[0], (params, batch), kernels,
@@ -2556,7 +2633,7 @@ def serve_stub_model(torch, cfg, params, device, kernels, steps, api, batch,
     prof_prefill = profile_calls(torch, lambda: prefill(params, batch), 3)
     pos = torch.full((B,), S + n_new - 1, dtype=torch.int32, device=device)
     prof_step = profile_calls(
-        torch, lambda: decode(params, state, tok, pos)[0].argmax(-1).cpu(), 10)
+        torch, lambda: decode(params, state, tok, pos)[0].argmax(-1).cpu(), 3)
     _print_profile("prefill", prof_prefill)
     _print_profile(f"decode step (B={B}, {S + n_new} positions)", prof_step)
     return dict(ttft_ms=ttft_s * 1e3, tpot_ms=tpot_ms, first_step_ms=times[0]
@@ -2681,8 +2758,9 @@ def phase_stub_model(torch, np, cfg, device, kernels, steps, api, train,
     K1 ``k1_layer`` times a layer a decode step), 32 greedy steps; check
     them against one forward; hold the first 2 layers in f32 on the card to
     the CPU (forward, prefill, decode, one train step); then 3 steps of
-    ``launch/train.py`` at batch 2 x ``train_seq`` (K2 and its backward
-    ``k2_layer`` times a layer a step)."""
+    ``launch/train.py`` at batch 2 x ``train_seq`` on the model cut to half
+    its depth, decoder and encoder (K2 and its backward ``k2_layer`` times a
+    layer a step)."""
     t_phase = time.perf_counter()
     held_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
@@ -2745,12 +2823,14 @@ def phase_stub_model(torch, np, cfg, device, kernels, steps, api, train,
     torch.cuda.empty_cache()
     lap("train step vs CPU")
     torch.cuda.reset_peak_memory_stats()
+    half = dataclasses.replace(cfg, num_layers=cfg.num_layers // 2,
+                               encoder_layers=cfg.encoder_layers // 2)
     trained = phase_train(
-        torch, np, cfg, kernels, steps, train, adamw,
-        {"flash_attention": k2_layer * cfg.num_layers,
-         "flash_attention_bwd": k2_layer * cfg.num_layers},
+        torch, np, half, kernels, steps, train, adamw,
+        {"flash_attention": k2_layer * half.num_layers,
+         "flash_attention_bwd": k2_layer * half.num_layers},
         n_steps=3, batch=2, seq=train_seq, profile_at=2, dtype="bfloat16",
-        converge=False, arch=cfg.name)
+        converge=False, arch=cfg.name, model_cfg=half)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     gc.collect()
     torch.cuda.empty_cache()
@@ -2841,8 +2921,8 @@ def phase_dense_gqa(torch, np, cfg, device, kernels, steps, api, serve, *,
         from repro_torch.core.config import ShapeConfig
         from repro_torch.kernels import sm_count
         sms = sm_count(torch.device(device))
-        print(f"== 13f. the count against the card: {cfg.name} bf16 decode "
-              "(4 slots, 128 positions)", flush=True)
+        section(f"== 13f. the count against the card: {cfg.name} bf16 decode "
+                "(4 slots, 128 positions)")
         state = api.allocate_decode_state(cfg, 4, 128, device)
         cost_cells.append(phase_cost_cell(
             torch, f"{cfg.name} decode B 4 S 128", cfg,
@@ -2858,8 +2938,8 @@ def phase_dense_gqa(torch, np, cfg, device, kernels, steps, api, serve, *,
                 torch.empty(4, a.num_kv_heads, 128, a.head_dim,
                             dtype=torch.bfloat16, device="meta"), sms)))
         del state
-        print(f"== 13g. the count against the card: {cfg.name} bf16 prefill "
-              "4 x 128", flush=True)
+        section(f"== 13g. the count against the card: {cfg.name} bf16 prefill "
+                "4 x 128")
         cost_cells.append(phase_cost_cell(
             torch, f"{cfg.name} prefill 4 x 128", cfg,
             ShapeConfig("prefill", 128, 4, "prefill"),
@@ -2897,6 +2977,269 @@ def phase_dense_gqa(torch, np, cfg, device, kernels, steps, api, serve, *,
                 peak_gb=peak_gb, held_gb=held_gb, serve=served, profile=prof,
                 prefill_bf16=pre, prefill_f32=pre32, vs_cpu=vs_cpu,
                 phase_s=phase_s, secs=secs)
+
+
+def _k1_lse_case(torch, dops, B, Hq, Hkv, S, hd, lens, dtype, gen) -> dict:
+    """K1's (out, lse) against its plain version at one shape, and K1 over
+    the cache cut along its keys into 2 and 16 shards (kv_len clamped to
+    each shard; some hold no valid key), merged by log-sum-exp, against K1
+    over the whole cache.  Returns the errors."""
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, Hq, hd, device="cuda", generator=gen).to(dt)
+    k = torch.randn(B, Hkv, S, hd, device="cuda", generator=gen).to(dt)
+    v = torch.randn(B, Hkv, S, hd, device="cuda", generator=gen).to(dt)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    out, lse = dops.decode_attention(q, k, v, kv_len, return_lse=True)
+    ref_out, ref_lse = dops.decode_attention_ref(q, k, v, kv_len,
+                                                 return_lse=True)
+    row = {"shape": f"B={B} Hq={Hq} Hkv={Hkv} S={S} hd={hd} kv_len={lens}",
+           "dtype": dtype,
+           "out_err": _within(torch, out, ref_out, TOL[dtype]),
+           "lse_err": _within(torch, lse, ref_lse, TOL[dtype])}
+    row["max_abs_err"] = max(row["out_err"], row["lse_err"])
+    check(torch.equal(dops.decode_attention(q, k, v, kv_len), out),
+          "decode_attention: the output changes with return_lse")
+    # times with the log-sum-exp, its plain version's, and without it
+    keys = sum(min(max(n, 0), S) for n in lens)
+    flops, nbytes = dops.cost(q, k, v, kv_len, keys=keys, with_lse=True)
+    row.update(**_timings(
+        torch, lambda: dops.decode_attention(q, k, v, kv_len, return_lse=True),
+        lambda: dops.decode_attention_ref(q, k, v, kv_len, return_lse=True),
+        None), **_bound(nbytes, flops, dtype))
+    row["ms_no_lse"] = time_ms(torch, lambda: dops.decode_attention(
+        q, k, v, kv_len))[0]
+    for n in (2, 16):
+        chunk = S // n
+        outs, lses = [], []
+        for i in range(n):
+            part = slice(i * chunk, (i + 1) * chunk)
+            m = (kv_len - i * chunk).clamp(0, chunk).to(torch.int32)
+            o, ls = dops.decode_attention(q, k[:, :, part].contiguous(),
+                                          v[:, :, part].contiguous(), m,
+                                          return_lse=True)
+            outs.append(o)
+            lses.append(ls)
+        empty = int(torch.isinf(torch.stack(lses)).all(-1).sum())
+        check(empty > 0, f"decode_attention: no empty shard at {n} shards")
+        merged = dops.merge_partials(torch.stack(outs), torch.stack(lses))
+        check(bool(torch.isfinite(merged).all()), "merge: not finite")
+        row[f"merge_{n}_err"] = _within(torch, merged, out, TOL[dtype])
+        row[f"merge_{n}_empty"] = empty
+    print(f"  k1 lse {dtype} {row['shape']}: {row['ms']:.4f} ms (without "
+          f"the lse {row['ms_no_lse']:.4f}, plain {row['plain_ms']:.4f}, bound "
+          f"{row['bound_ms']:.5f} by {row['bound_by']}); out "
+          f"{row['out_err']:.2e} lse "
+          f"{row['lse_err']:.2e}; merged over 2 / 16 key shards "
+          f"{row['merge_2_err']:.2e} / {row['merge_16_err']:.2e} "
+          f"({row['merge_2_empty']} / {row['merge_16_empty']} (row, head) "
+          "shards with no key)", flush=True)
+    return row
+
+
+def phase_mesh(torch, np, device, kernels, steps, api, adamw, get_arch,
+               OptimizerConfig, ShapeConfig, dops, gen) -> dict:
+    """Phase 15: (a) a one-rank NCCL mesh = no mesh, (b) K1's log-sum-exp
+    and its merge over key shards, (c) one sharded dry-run cell."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.perf import roofline, useful_flops
+
+    t0 = time.perf_counter()
+    out = {}
+    # ---- (a) one rank, (1, 1) mesh = no mesh ----------------------------
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1,
+                            **({"device_id": dev} if on_card else {}))
+    mesh = init_device_mesh(dev.type, (1, 1), mesh_dim_names=("data", "model"))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    cfg = dataclasses.replace(get_arch("qwen1.5-0.5b").model,
+                              param_dtype="float32", compute_dtype="float32")
+    params = api.init_params(torch.Generator(device).manual_seed(15), cfg)
+    B, S, new = 4, 128, 8
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + new), device=device,
+                           generator=gen, dtype=torch.int32)
+    prefill, serve_step = steps.make_prefill_step(cfg), \
+        steps.make_serve_step(cfg)
+
+    def decode(p, state, put, rules):
+        logits, walls = [], []
+        for i in range(new):
+            tok = put(tokens[:, S + i])
+            sync()
+            t = time.perf_counter()
+            with rules():
+                lg, state = serve_step(p, state, tok,
+                                       torch.tensor(S + i, device=device))
+            sync()
+            walls.append((time.perf_counter() - t) * 1e3)
+            logits.append(sh.full(lg))
+        return torch.stack(logits), walls
+
+    reset_counts(kernels)
+    logits0, cache = prefill(params, {"tokens": tokens[:, :S]})
+    state = api.grow_decode_state(cfg, cache, S + new)
+    state_copy = _cast(state, lambda t: t.clone())
+    dec0, walls0 = decode(params, state, lambda t: t,
+                          lambda: sh.activation_rules(None))
+    launches0 = launches_of(kernels)
+    shape = ShapeConfig("p", S, B, "prefill")
+    specs = mesh_lib.shardings_for(cfg, shape, mesh, params, None,
+                                   {"tokens": tokens[:, :S]})
+    with sh.activation_rules(mesh):
+        pm = sh.distribute_tree(params, specs["params"], mesh)
+        reset_counts(kernels)
+        logits1, _ = prefill(pm, sh.distribute_tree(
+            {"tokens": tokens[:, :S]}, specs["batch"], mesh))
+        dshape = ShapeConfig("d", S + new, B, "decode")
+        dspecs = mesh_lib.shardings_for(cfg, dshape, mesh, params, None,
+                                        {"tokens": tokens[:, S],
+                                         "state": state_copy},
+                                        seq_parallel=True)
+        state1 = sh.distribute_tree(state_copy, dspecs["state"], mesh)
+    dec1, walls1 = decode(pm, state1, lambda t: sh.distribute(
+        t, dspecs["tokens"], mesh),
+        lambda: sh.activation_rules(mesh, seq_parallel=True))
+    launches1 = launches_of(kernels)
+    del pm, state1, state, state_copy, cache
+    err_p = float((sh.full(logits1) - logits0).abs().max())
+    err_d = float((dec1 - dec0).abs().max())
+    tol = 1e-5
+    check(err_p <= tol and err_d <= tol, f"mesh (1, 1) != no mesh: prefill "
+          f"{err_p}, decode {err_d} (tolerance {tol})")
+    check(launches1 == launches0, f"mesh launches {launches1} != no mesh "
+          f"{launches0}")
+    wall0, wall1 = float(np.median(walls0[1:])), float(np.median(walls1[1:]))
+    print(f"  (a) qwen1.5-0.5b f32, 4 x 128 prefill + {new} decode steps: "
+          f"mesh (1, 1) vs none: max |diff| prefill {err_p:.3g}, decode "
+          f"{err_d:.3g} (tolerance {tol}; bitwise: {err_p == err_d == 0.0}); "
+          f"launches {launches1}; decode step host wall {wall1:.2f} ms with "
+          f"the mesh, {wall0:.2f} ms without (DTensor's dispatch "
+          f"{wall1 - wall0:.2f} ms)", flush=True)
+    out["a"] = dict(prefill_err=err_p, decode_err=err_d, tol=tol,
+                    launches=launches1, decode_wall_ms=wall1,
+                    decode_wall_ms_no_mesh=wall0)
+    del params
+    # one train step at 2 x 256 with and without the mesh, in f32 and with
+    # bf16 products: f32 params, so that each param's move shows whole, and
+    # no warmup, so that step 1 runs at the full rate and moves a param by
+    # up to lr; eps 1e-3 makes the move, lr g / (|g| + eps) in AdamW's
+    # first step, a smooth function of the gradient (at eps 1e-8 a gradient
+    # within rounding of zero moves its param by anything in (-lr, lr)).
+    # In f32 the moves agree within lr / 100 (relative RMS 1e-3); with bf16
+    # products the mesh's 2-D products and its norms' sums round otherwise
+    # than the plain 3-D ones, and the moves within lr / 2 (relative RMS
+    # 5e-2) -- still far from a skipped update (1), a doubled rate (1) or a
+    # wrong step count (~0.5)
+    opt_cfg = OptimizerConfig(warmup_steps=0, eps=1e-3)
+    lr = opt_cfg.lr
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 256),
+                                     device=device, generator=gen,
+                                     dtype=torch.int32)}
+    tshape = ShapeConfig("t", 256, 2, "train")
+    out["a"]["train"] = {}
+    for name, compute, tol_move, tol_rms in (
+            ("f32", "float32", lr / 100, 1e-3),
+            ("bf16 products", "bfloat16", lr / 2, 5e-2)):
+        cfg_t = dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype=compute)
+        p_t = api.init_params(torch.Generator(device).manual_seed(16), cfg_t)
+        p_init = _cast(p_t, lambda t: t.clone())
+        step = steps.make_train_step(cfg_t, opt_cfg, remat="none")
+        opt = adamw.init_opt_state(p_t, opt_cfg)
+        tspecs = mesh_lib.shardings_for(cfg_t, tshape, mesh, p_t, opt, batch)
+        with sh.activation_rules(mesh):
+            pm = sh.distribute_tree(p_t, tspecs["params"], mesh)
+            om = sh.distribute_tree(opt, tspecs["opt_state"], mesh)
+            bm = sh.distribute_tree(batch, tspecs["batch"], mesh)
+            reset_counts(kernels)
+            pm, _, m1 = step(pm, om, bm)
+            sync()
+            launches_t1 = launches_of(kernels)
+        reset_counts(kernels)
+        p_t, _, m0 = step(p_t, opt, batch)
+        sync()
+        launches_t0 = launches_of(kernels)
+        err_loss = abs(float(m1["loss"].full_tensor()) - float(m0["loss"]))
+        err_norm = abs(float(m1["grad_norm"]) - float(m0["grad_norm"]))
+        # each param's move, mesh against none
+        err_move = moved = sq_err = sq_move = 0.0
+        for a, b, c in zip(adamw.leaves(pm), adamw.leaves(p_t),
+                           adamw.leaves(p_init)):
+            d_mesh, d_none = sh.full(a) - c, b - c
+            err_move = max(err_move, float((d_mesh - d_none).abs().max()))
+            moved = max(moved, float(d_none.abs().max()))
+            sq_err += float((d_mesh - d_none).double().square().sum())
+            sq_move += float(d_none.double().square().sum())
+        rel_move = (sq_err / sq_move) ** 0.5
+        tol_t = dict(loss=1e-4, grad_norm=1e-3 * float(m0["grad_norm"]),
+                     move=tol_move, move_rms=tol_rms)
+        check(err_loss <= tol_t["loss"] and err_norm <= tol_t["grad_norm"]
+              and moved > lr / 2 and err_move <= tol_t["move"]
+              and rel_move <= tol_t["move_rms"],
+              f"mesh train step ({name}) != no mesh: loss {err_loss}, grad "
+              f"norm {err_norm}, params' move max {moved} (lr {lr}), its max "
+              f"|diff| {err_move}, relative RMS {rel_move} (tolerances "
+              f"{tol_t})")
+        check(launches_t1 == launches_t0 and (
+              launches_t1["flash_attention_bwd"] == cfg.num_layers
+              or not on_card),
+              f"train launches {launches_t1} vs {launches_t0}")
+        print(f"  (a) train step 2 x 256, {name} (f32 params; lr {lr}, no "
+              f"warmup, eps 1e-3): mesh vs none: |d loss| {err_loss:.3g}, "
+              f"|d grad norm| {err_norm:.3g}; params moved up to "
+              f"{moved:.3g}, the moves' max |diff| {err_move:.3g}, "
+              f"relative RMS {rel_move:.3g} (tolerances {tol_t}); launches "
+              f"{launches_t1}", flush=True)
+        out["a"]["train"][name] = dict(
+            loss_err=err_loss, grad_norm_err=err_norm, max_move=moved,
+            move_err=err_move, move_rel_rms=rel_move, tol=tol_t,
+            launches=launches_t1)
+        del pm, om, p_t, p_init, opt, m0, m1
+        gc.collect()
+    dist.destroy_process_group()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    # ---- (b) K1's log-sum-exp and the merge over key shards -------------
+    out["b"] = [_k1_lse_case(torch, dops, 4, 16, 16, 512, 64,
+                             [1, 333, 512, 200], "float32", gen),
+                _k1_lse_case(torch, dops, 4, 16, 16, 512, 64,
+                             [1, 333, 512, 200], "bfloat16", gen),
+                _k1_lse_case(torch, dops, 4, 40, 8, 4096, 128,
+                             [17, 2000, 4096, 1], "bfloat16", gen)]
+    # ---- (c) one sharded dry-run cell ----------------------------------
+    qcfg = get_arch("qwen1.5-0.5b").model
+    dshape = dryrun.LM_SHAPES["decode_32k"]
+    rep = dryrun.count_on_mesh(qcfg, dshape, multi_pod=False)
+    terms = roofline(rep, qcfg, useful_flops(qcfg, dshape) / rep["chips"])
+    check(rep["collective_bytes"] > 0 and rep["flops"] > 0,
+          "the sharded cell counted no collectives")
+    coll = {k: v / 1e9 for k, v in rep["collective_breakdown"].items()}
+    print(f"  (c) qwen1.5-0.5b decode_32k on {rep['mesh']} (rank 0 of a "
+          f"virtual group, seq_parallel): {rep['flops'] / 1e9:.3f} GFLOP, "
+          f"{rep['hbm_bytes'] / 1e9:.3f} GB, collectives {coll} GB, "
+          f"t_compute {terms['t_compute_ms']:.4f} ms, t_memory "
+          f"{terms['t_memory_ms']:.4f} ms, t_collective "
+          f"{terms['t_collective_ms']:.4f} ms, peak "
+          f"{rep['peak_bytes'] / 1e9:.3f} GB, trace "
+          f"{rep['trace_seconds']:.1f} s", flush=True)
+    out["c"] = dict(flops=rep["flops"], hbm_bytes=rep["hbm_bytes"],
+                    collective_breakdown=rep["collective_breakdown"],
+                    peak_bytes=rep["peak_bytes"], **terms)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 15: {out['phase_s']:.1f} s", flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -2938,7 +3281,7 @@ def main(argv=None) -> int:
                "rwkv6_scan_bwd": kbops, "mla_decode": mops}
     t_start = time.perf_counter()
     # ---- 1. build and device -------------------------------------------
-    print("== 1. build and device", flush=True)
+    section("== 1. build and device")
     device = resolve_device("cuda")        # also sets full-precision matmuls
     build_s = _build.build()
     print(f"built {_build.sources()} in {build_s:.1f} s "
@@ -2993,7 +3336,7 @@ def main(argv=None) -> int:
           flush=True)
 
     # ---- 2. kernels against plain versions ------------------------------
-    print("== 2. kernels against their plain versions on the card", flush=True)
+    section("== 2. kernels against their plain versions on the card")
     gen = torch.Generator(device=device).manual_seed(0)
     rows = {name: [] for name in kernels}
     # phase 12's shapes, by kernel and use, printed with the kernel's rows
@@ -3221,6 +3564,8 @@ def main(argv=None) -> int:
             _print_row(key, row)
     for key, row in slice14.items():
         _print_row(key, row)
+    print("phase 2's cases, host seconds by kind: " + ", ".join(
+        f"{name} {secs:.1f}" for name, secs in CASE_S.items()), flush=True)
     # each kernel at the shape the main paths give it (f32, as served)
     main_rows = {
         "decode_attention": decode_case(torch, F, dops, 4, 16, 16, 512, 64,
@@ -3243,10 +3588,11 @@ def main(argv=None) -> int:
                               param_dtype="float32", compute_dtype="float32")
     params = api.init_params(torch.Generator(device=device).manual_seed(0), cfg)
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"== 3. serve {cfg.name} at full width ({cfg.num_layers} layers, "
-          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
-          f"{n_params / 1e6:.1f} M f32 params)", flush=True)
-    served = phase_serve(torch, np, cfg, params, device, kernels, serve)
+    section(f"== 3. serve {cfg.name} at full width ({cfg.num_layers} layers, "
+            f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+            f"{n_params / 1e6:.1f} M f32 params)")
+    served = phase_serve(torch, np, cfg, params, device, kernels, serve,
+                         prompt_range=(16, 129))
     n = served["launches"]
     check(n["decode_attention"] == cfg.num_layers * served["decode_calls"],
           f"decode kernel launched {n['decode_attention']} times for "
@@ -3256,14 +3602,14 @@ def main(argv=None) -> int:
               if name != "decode_attention"),
           f"serving {cfg.name} launched another kernel: {n}")
     prof = phase_profile(torch, cfg, params, device, steps, api)
-    print("== 4. ragged batch equals solo decode at full width", flush=True)
+    section("== 4. ragged batch equals solo decode at full width")
     ragged_err = phase_ragged(torch, cfg, params, device, steps, api)
-    print("== 5. prefill 4 x 256 tokens through flash_attention", flush=True)
+    section("== 5. prefill 4 x 256 tokens through flash_attention")
     pre = phase_prefill(torch, np, cfg, params, device, kernels,
                         {"flash_attention": cfg.num_layers}, steps, api)
-    print("== 13a. the count against the card: qwen1.5-0.5b f32 decode (4 "
-          "slots, 512 positions), prefill 4 x 256, one train step 4 x 512 "
-          "(remat dots)", flush=True)
+    section("== 13a. the count against the card: qwen1.5-0.5b f32 decode (4 "
+            "slots, 512 positions), prefill 4 x 256, one train step 4 x 512 "
+            "(remat dots)")
     cost_cells = []
     sms = sm_count(torch.device(device))
     att, cd = cfg.attention, getattr(torch, cfg.compute_dtype)
@@ -3304,58 +3650,60 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- training: qwen1.5-0.5b through K2 and its backward --------------
-    print(f"== train (a). one step of {cfg.name} cut to 2 layers at full "
-          "width, on the card and on the CPU from the same params", flush=True)
+    section(f"== train (a). one step of {cfg.name} cut to 2 layers at full "
+            "width, on the card and on the CPU from the same params")
     k2 = {"flash_attention": 1, "flash_attention_bwd": 1}   # a layer
     step_vs_cpu = phase_train_step_vs_cpu(
         torch, dataclasses.replace(cfg, num_layers=2), device, kernels, steps,
         api, adamw, OptimizerConfig, pipeline,
         {name: 2 * calls for name, calls in k2.items()})
-    print(f"== train (b). {cfg.name} at full width and depth, f32, through "
-          "launch/train.py's main", flush=True)
+    section(f"== train (b). {cfg.name} at full width and depth, f32, through "
+            "launch/train.py's main")
     per_layer = {name: cfg.num_layers * calls for name, calls in k2.items()}
     trained = phase_train(torch, np, cfg, kernels, steps, train, adamw,
                           per_layer, n_steps=20)
-    print(f"== train (b2). {cfg.name} at full width and depth in bf16 "
-          "(--dtype bfloat16): two steps, then one profiled", flush=True)
+    section(f"== train (b2). {cfg.name} at full width and depth in bf16 "
+            "(--dtype bfloat16): two steps, then one profiled")
     trained_bf16 = phase_train(torch, np, cfg, kernels, steps, train, adamw,
                                per_layer, n_steps=3, profile_at=2,
                                dtype="bfloat16", converge=False)
     gc.collect()
     torch.cuda.empty_cache()
-    print("== train (c). rwkv6 and jamba smoke: every gradient on the card "
-          "against the CPU's (f32), under each remat mode; flash-decode "
-          "refuses grad mode",
-          flush=True)
+    section("== train (c). rwkv6 and jamba smoke: every gradient on the card "
+            "against the CPU's (f32), under each remat mode; flash-decode "
+            "refuses grad mode")
     grad_check = phase_grad_check(torch, device, api, adamw, get_arch,
                                   pipeline, kernels, dops)
     rcfg = dataclasses.replace(get_arch("rwkv6-1.6b").model,
                                param_dtype="float32", compute_dtype="float32")
-    print(f"== train (c2). one step of {rcfg.name} cut to 2 layers at full "
-          "width, on the card and on the CPU from the same params", flush=True)
+    section(f"== train (c2). one step of {rcfg.name} cut to 2 layers at full "
+            "width, on the card and on the CPU from the same params")
     step_vs_cpu_r = phase_train_step_vs_cpu(
         torch, dataclasses.replace(rcfg, num_layers=2), device, kernels,
         steps, api, adamw, OptimizerConfig, pipeline,
         {"rwkv6_scan": 2, "rwkv6_scan_bwd": 2})
     from repro_torch.configs.jamba_1_5_large_398b import TRAIN_CARD
-    print("== train (c3). jamba's Mamba mixer at full width (TRAIN_CARD's "
-          "layer 0, f32), on the card and on the CPU", flush=True)
+    section("== train (c3). jamba's Mamba mixer at full width (TRAIN_CARD's "
+            "layer 0, f32), on the card and on the CPU")
     mixer_vs_cpu = phase_mixer_vs_cpu(torch, dataclasses.replace(
         TRAIN_CARD, param_dtype="float32", compute_dtype="float32"), device,
         kernels, adamw)
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"== train (d). {rcfg.name} at full width and depth, f32, through "
-          "launch/train.py's main", flush=True)
+    rtrain = dataclasses.replace(rcfg, num_layers=rcfg.num_layers // 2)
+    section(f"== train (d). {rcfg.name} at full width, its first "
+            f"{rtrain.num_layers} of {rcfg.num_layers} layers, f32, through "
+            "launch/train.py's main")
     trained_r = phase_train(
-        torch, np, rcfg, kernels, steps, train, adamw,
-        {"rwkv6_scan": rcfg.num_layers, "rwkv6_scan_bwd": rcfg.num_layers},
-        n_steps=20, arch="rwkv6-1.6b")
+        torch, np, rtrain, kernels, steps, train, adamw,
+        {"rwkv6_scan": rtrain.num_layers,
+         "rwkv6_scan_bwd": rtrain.num_layers},
+        n_steps=20, arch="rwkv6-1.6b", model_cfg=rtrain)
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"== train (e). {TRAIN_CARD.name} cut to {TRAIN_CARD.num_layers} "
-          "layer (TRAIN_CARD: Mamba mixer and dense FFN at full width), bf16, "
-          "through launch/train.py's main", flush=True)
+    section(f"== train (e). {TRAIN_CARD.name} cut to {TRAIN_CARD.num_layers} "
+            "layer (TRAIN_CARD: Mamba mixer and dense FFN at full width), bf16, "
+            "through launch/train.py's main")
     trained_j = phase_train(
         torch, np, TRAIN_CARD, kernels, steps, train, adamw,
         {"ssm_scan": 1, "ssm_scan_bwd": 1}, n_steps=20, batch=2,
@@ -3365,18 +3713,17 @@ def main(argv=None) -> int:
 
     # ---- training: deepseek-v2's MLA through K2 and its backward at (192,
     # 128) ------------------------------------------------------------------
-    print("== train (f). deepseek-v2 smoke: every gradient on the card against "
-          "the CPU's (f32, K2 and its backward at (24, 16) on 3xTF32), under "
-          "each remat mode", flush=True)
+    section("== train (f). deepseek-v2 smoke: every gradient on the card against "
+            "the CPU's (f32, K2 and its backward at (24, 16) on 3xTF32), under "
+            "each remat mode")
     grad_check_d = phase_grad_check(torch, device, api, adamw, get_arch,
                                     pipeline, kernels, None,
                                     archs=("deepseek-v2-236b",))
     from repro_torch.configs.deepseek_v2_236b import TRAIN_CARD as DTRAIN
     mla_k2 = {"flash_attention": 1, "flash_attention_bwd": 1}   # one layer
-    print(f"== train (g). {DTRAIN.name} cut to {DTRAIN.num_layers} layer "
-          "(TRAIN_CARD: MLA and the dense FFN at full width) in f32: one step "
-          "of B 1 x 256 on the card and on the CPU from the same params",
-          flush=True)
+    section(f"== train (g). {DTRAIN.name} cut to {DTRAIN.num_layers} layer "
+            "(TRAIN_CARD: MLA and the dense FFN at full width) in f32: one step "
+            "of B 1 x 256 on the card and on the CPU from the same params")
     step_vs_cpu_d = phase_train_step_vs_cpu(
         torch, dataclasses.replace(DTRAIN, param_dtype="float32",
                                    compute_dtype="float32"),
@@ -3384,8 +3731,8 @@ def main(argv=None) -> int:
         batch=1, remat_modes=())
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"== train (h). {DTRAIN.name} TRAIN_CARD in bf16 through "
-          "launch/train.py's main: B 2 x 512, 20 steps", flush=True)
+    section(f"== train (h). {DTRAIN.name} TRAIN_CARD in bf16 through "
+            "launch/train.py's main: B 2 x 512, 20 steps")
     # at the trainer's default lr of 3e-4 the bf16 weights of this model
     # spike (to a loss of 19 at step 7 on an H100, where f32 falls): 1e-4
     trained_d = phase_train(
@@ -3394,8 +3741,8 @@ def main(argv=None) -> int:
         lr=1e-4)
     gc.collect()
     torch.cuda.empty_cache()
-    print("== 13e. the count against the card: deepseek-v2 TRAIN_CARD bf16 "
-          "train step 2 x 512", flush=True)
+    section("== 13e. the count against the card: deepseek-v2 TRAIN_CARD bf16 "
+            "train step 2 x 512")
     dtp = api.init_params(torch.Generator(device=device).manual_seed(0),
                           DTRAIN)
     d_opt = OptimizerConfig()
@@ -3427,9 +3774,9 @@ def main(argv=None) -> int:
     rparams = api.init_params(torch.Generator(device=device).manual_seed(0),
                               rcfg)
     n_params = sum(t.numel() for t in _leaves(rparams))
-    print(f"== 6. serve {rcfg.name} at full width ({rcfg.num_layers} layers, "
-          f"d_model {rcfg.d_model}, vocab {rcfg.vocab_size}, "
-          f"{n_params / 1e6:.1f} M f32 params)", flush=True)
+    section(f"== 6. serve {rcfg.name} at full width ({rcfg.num_layers} layers, "
+            f"d_model {rcfg.d_model}, vocab {rcfg.vocab_size}, "
+            f"{n_params / 1e6:.1f} M f32 params)")
     served_r = phase_serve(torch, np, rcfg, rparams, device, kernels, serve)
     n = served_r["launches"]
     want = rcfg.num_layers * 8
@@ -3438,18 +3785,18 @@ def main(argv=None) -> int:
     check(all(calls == 0 for name, calls in n.items() if name != "rwkv6_scan"),
           f"serving {rcfg.name} launched another kernel: {n}")
     prof_r = phase_profile(torch, rcfg, rparams, device, steps, api)
-    print("== 7a. prefill 2 x 256 tokens through rwkv6_scan", flush=True)
+    section("== 7a. prefill 2 x 256 tokens through rwkv6_scan")
     pre_r = phase_prefill(torch, np, rcfg, rparams, device, kernels,
                           {"rwkv6_scan": rcfg.num_layers}, steps, api, batch=2)
-    print("== 13b. the count against the card: rwkv6-1.6b f32 prefill 4 x "
-          "256", flush=True)
+    section("== 13b. the count against the card: rwkv6-1.6b f32 prefill 4 x "
+            "256")
     cost_cells.append(phase_cost_cell(
         torch, "rwkv6-1.6b prefill 4 x 256", rcfg,
         ShapeConfig("prefill", 256, 4, "prefill"),
         steps.make_prefill_step(rcfg),
         (rparams, {"tokens": _prompts(torch, np, rcfg, device, 4, 256)}),
         kernels, want=("rwkv6_scan",)))
-    print("== 7b. 2-slot server equals solo at full width", flush=True)
+    section("== 7b. 2-slot server equals solo at full width")
     solo_err = phase_server_solo(torch, np, rcfg, rparams, device, serve)
     del rparams
     gc.collect()
@@ -3468,12 +3815,12 @@ def main(argv=None) -> int:
     n_params = sum(t.numel() for t in leaves)
     gbytes = sum(t.numel() * t.element_size() for t in leaves) / 1e9
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"== 8. serve {jcfg.name} cut to {jcfg.num_layers} layers at full "
-          f"width (d_model {jcfg.d_model}, {jcfg.moe.num_experts} experts of "
-          f"d_ff {jcfg.moe.d_ff_expert}, vocab {jcfg.vocab_size}, "
-          f"{n_params / 1e9:.2f} B {jcfg.param_dtype} params, {gbytes:.1f} GB; "
-          f"init {init_s:.1f} s, peak {peak_gb:.1f} GB with {held_gb:.2f} GB "
-          "held before it)", flush=True)
+    section(f"== 8. serve {jcfg.name} cut to {jcfg.num_layers} layers at full "
+            f"width (d_model {jcfg.d_model}, {jcfg.moe.num_experts} experts of "
+            f"d_ff {jcfg.moe.d_ff_expert}, vocab {jcfg.vocab_size}, "
+            f"{n_params / 1e9:.2f} B {jcfg.param_dtype} params, {gbytes:.1f} GB; "
+            f"init {init_s:.1f} s, peak {peak_gb:.1f} GB with {held_gb:.2f} GB "
+            "held before it)")
     n_ssm = jcfg.layer_kinds().count("ssm")
     n_attn = jcfg.layer_kinds().count("attn")
     served_j = phase_serve(torch, np, jcfg, jparams, device, kernels, serve)
@@ -3492,19 +3839,18 @@ def main(argv=None) -> int:
     dropless = dataclasses.replace(jcfg, moe=dataclasses.replace(
         jcfg.moe, capacity_factor=-1.0))
     want = {"ssm_scan": n_ssm, "flash_attention": n_attn}
-    print("== 9a. prefill 2 x 256 tokens through ssm_scan and "
-          "flash_attention (dropless MoE), computed in f32 from the same "
-          "bf16 weights", flush=True)
+    section("== 9a. prefill 2 x 128 tokens through ssm_scan and "
+            "flash_attention (dropless MoE), computed in f32 from the same "
+            "bf16 weights")
     pre_j32 = phase_prefill(torch, np, dataclasses.replace(
         dropless, compute_dtype="float32"), jparams, device, kernels, want,
-        steps, api, batch=2)
+        steps, api, batch=2, length=128)
     torch.cuda.empty_cache()
-    print("== 9b. the same in bf16, as served, against bf16's own rounding",
-          flush=True)
+    section("== 9b. the same in bf16, as served, against bf16's own rounding")
     pre_j = phase_prefill_bf16(torch, np, dropless, jparams, device, steps,
                                api)
     torch.cuda.empty_cache()
-    print("== 9c. 2-slot server equals solo at full width, bf16", flush=True)
+    section("== 9c. 2-slot server equals solo at full width, bf16")
     solo_err_j = phase_server_solo(torch, np, jcfg, jparams, device, serve)
     del jparams, leaves
     gc.collect()
@@ -3512,9 +3858,9 @@ def main(argv=None) -> int:
 
     # ---- 10. DilatedVGG at 1024 x 2048, bf16 -------------------------------
     vcfg = get_arch("dilated-vgg").model
-    print(f"== 10. {vcfg.name} at {vcfg.convnet.in_hw[0]} x "
-          f"{vcfg.convnet.in_hw[1]} in {vcfg.compute_dtype}: forward and its "
-          "layers, bf16 against f32, card against CPU, training", flush=True)
+    section(f"== 10. {vcfg.name} at {vcfg.convnet.in_hw[0]} x "
+            f"{vcfg.convnet.in_hw[1]} in {vcfg.compute_dtype}: forward and its "
+            "layers, bf16 against f32, card against CPU, training")
     dvgg = phase_dilated_vgg(torch, vcfg, device, api, steps, adamw,
                              OptimizerConfig, kernels)
     cost_cells.append(dvgg.pop("cost"))
@@ -3536,22 +3882,22 @@ def main(argv=None) -> int:
     gbytes_d = sum(t.numel() * t.element_size() for t in dleaves) / 1e9
     del dleaves
     a = dcfg.attention
-    print(f"== 11. serve {dcfg.name} cut to {dcfg.num_layers} layers at full "
-          f"width (d_model {dcfg.d_model}, MLA {a.num_heads} heads, "
-          f"kv_lora_rank {a.kv_lora_rank}, q_lora_rank {a.q_lora_rank}, "
-          f"nope {a.qk_nope_head_dim} + rope {a.qk_rope_head_dim}, v "
-          f"{a.v_head_dim}; a dense prefix layer of d_ff "
-          f"{dcfg.moe.d_ff_dense} and {dcfg.num_layers - 1} MoE layers of "
-          f"{dcfg.moe.num_experts} experts top-{dcfg.moe.num_experts_per_tok}"
-          f" of d_ff {dcfg.moe.d_ff_expert} + {dcfg.moe.num_shared_experts} "
-          f"shared; vocab {dcfg.vocab_size}; {n_params_d / 1e9:.2f} B "
-          f"{dcfg.param_dtype} params, {gbytes_d:.1f} GB; init {init_s_d:.1f} "
-          f"s, peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB with "
-          f"{held_gb_d:.2f} GB held before it)", flush=True)
+    section(f"== 11. serve {dcfg.name} cut to {dcfg.num_layers} layers at full "
+            f"width (d_model {dcfg.d_model}, MLA {a.num_heads} heads, "
+            f"kv_lora_rank {a.kv_lora_rank}, q_lora_rank {a.q_lora_rank}, "
+            f"nope {a.qk_nope_head_dim} + rope {a.qk_rope_head_dim}, v "
+            f"{a.v_head_dim}; a dense prefix layer of d_ff "
+            f"{dcfg.moe.d_ff_dense} and {dcfg.num_layers - 1} MoE layers of "
+            f"{dcfg.moe.num_experts} experts top-{dcfg.moe.num_experts_per_tok}"
+            f" of d_ff {dcfg.moe.d_ff_expert} + {dcfg.moe.num_shared_experts} "
+            f"shared; vocab {dcfg.vocab_size}; {n_params_d / 1e9:.2f} B "
+            f"{dcfg.param_dtype} params, {gbytes_d:.1f} GB; init {init_s_d:.1f} "
+            f"s, peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB with "
+            f"{held_gb_d:.2f} GB held before it)")
     served_d = phase_serve(torch, np, dcfg, dparams, device, kernels, serve,
                            max_len=128, prompt_range=(16, 65))
-    print("== 13d. the count against the card: deepseek-v2 CARD bf16 decode "
-          "(4 slots, 128 positions)", flush=True)
+    section("== 13d. the count against the card: deepseek-v2 CARD bf16 decode "
+            "(4 slots, 128 positions)")
     state = api.allocate_decode_state(dcfg, 4, 128, device)
     cost_cells.append(phase_cost_cell(
         torch, "deepseek-v2 CARD decode B 4 S 128", dcfg,
@@ -3595,8 +3941,8 @@ def main(argv=None) -> int:
     # expert's capacity, which one-token decode steps never do: dropless
     ddropless = dataclasses.replace(dcfg, moe=dataclasses.replace(
         dcfg.moe, capacity_factor=-1.0))
-    print("== 11a. prefill = decode, 2 x 48 tokens, in bf16 as served "
-          "(dropless MoE), against bf16's own rounding", flush=True)
+    section("== 11a. prefill = decode, 2 x 48 tokens, in bf16 as served "
+            "(dropless MoE), against bf16's own rounding")
     reset_counts(kernels)
     pre_d = phase_prefill_bf16(torch, np, ddropless, dparams, device, steps,
                                api, length=48)
@@ -3607,8 +3953,8 @@ def main(argv=None) -> int:
     check(n == want, f"prefill = decode launched {n}, want {want}")
     k2_mla_launches = n["flash_attention"]
     torch.cuda.empty_cache()
-    print("== 11b. prefill = decode, 2 x 48 tokens, the first 2 layers in f32 "
-          "(dropless MoE) at 2e-3", flush=True)
+    section("== 11b. prefill = decode, 2 x 48 tokens, the first 2 layers in f32 "
+            "(dropless MoE) at 2e-3")
     d32 = first_layers_f32(torch, dparams, 2)
     pre_d32 = phase_prefill(torch, np, dataclasses.replace(
         ddropless, num_layers=2, param_dtype="float32",
@@ -3617,8 +3963,8 @@ def main(argv=None) -> int:
     del d32
     gc.collect()
     torch.cuda.empty_cache()
-    print("== 11c. one MLA block at full width in f32 (prefill, then 8 decode "
-          "steps): card against CPU", flush=True)
+    section("== 11c. one MLA block at full width in f32 (prefill, then 8 decode "
+            "steps): card against CPU")
     block_d = phase_mla_block(torch, dcfg, dparams, device, kernels)
     del dparams
     gc.collect()
@@ -3631,17 +3977,17 @@ def main(argv=None) -> int:
     stub_kw = dict(torch=torch, np=np, device=device, kernels=kernels,
                    steps=steps, api=api, train=train, adamw=adamw,
                    OptimizerConfig=OptimizerConfig, pipeline=pipeline)
-    print("== 12a. internvl2-2b at full width and depth, bf16: 4 rows of "
-          "1,024 patch embeddings and 64 prompt tokens, 32 greedy steps; "
-          "against one forward; 2 layers in f32 card = CPU; 3 train steps "
-          "of 256 patches + 512 tokens", flush=True)
+    section("== 12a. internvl2-2b at full width and depth, bf16: 4 rows of "
+            "1,024 patch embeddings and 64 prompt tokens, 32 greedy steps; "
+            "against one forward; 2 layers in f32 card = CPU; 3 train steps "
+            "of 256 patches + 512 tokens at half depth (12 layers)")
     vlm = phase_stub_model(cfg=get_arch("internvl2-2b").model, n_embeds=1024,
                            n_tokens=64, k2_layer=1, k1_layer=1, train_seq=512,
                            **stub_kw)
-    print("== 12b. seamless-m4t-large-v2 at full width and depth, bf16: 4 "
-          "rows of 1,024 frames and 16 prompt tokens, 32 greedy steps; "
-          "against one forward; 2 + 2 layers in f32 card = CPU; 3 train "
-          "steps of 512 frames + 512 tokens", flush=True)
+    section("== 12b. seamless-m4t-large-v2 at full width and depth, bf16: 4 "
+            "rows of 1,024 frames and 16 prompt tokens, 32 greedy steps; "
+            "against one forward; 2 + 2 layers in f32 card = CPU; 3 train "
+            "steps of 512 frames + 512 tokens at half depth (12 + 12 layers)")
     audio = phase_stub_model(cfg=get_arch("seamless-m4t-large-v2").model,
                              n_embeds=1024, n_tokens=16, k2_layer=3,
                              k1_layer=2, train_seq=1024, **stub_kw)
@@ -3654,18 +4000,18 @@ def main(argv=None) -> int:
     dense_kw = dict(torch=torch, np=np, device=device, kernels=kernels,
                     steps=steps, api=api, serve=serve)
     qcfg = get_arch("qwen2.5-14b").model
-    print(f"== 14a. serve {qcfg.name} at full width and depth "
-          f"({qcfg.num_layers} layers, bf16): 4 requests of 16-64 prompt "
-          "tokens, 16 new tokens, 4 slots of 128 positions; one decode step "
-          "profiled; prefill = decode in bf16 and, on the first 2 layers in "
-          "f32, at 2e-3; 2 layers in f32 card = CPU; the decode step and a "
-          "prefill counted (13f, 13g)", flush=True)
+    section(f"== 14a. serve {qcfg.name} at full width and depth "
+            f"({qcfg.num_layers} layers, bf16): 4 requests of 16-64 prompt "
+            "tokens, 16 new tokens, 4 slots of 128 positions; one decode step "
+            "profiled; prefill = decode in bf16 and, on the first 2 layers in "
+            "f32, at 2e-3; 2 layers in f32 card = CPU; the decode step and a "
+            "prefill counted (13f, 13g)")
     qwen25 = phase_dense_gqa(cfg=qcfg, f32_layers=2, cost_cells=cost_cells,
                              **dense_kw)
-    print(f"== 14b. serve {mcfg.name} CARD (its first {mcfg.num_layers} of "
-          "88 layers at full width, bf16): the same traffic; one decode step "
-          "profiled; prefill = decode in bf16; the first layer in f32 card = "
-          "CPU", flush=True)
+    section(f"== 14b. serve {mcfg.name} CARD (its first {mcfg.num_layers} of "
+            "88 layers at full width, bf16): the same traffic; one decode step "
+            "profiled; prefill = decode in bf16; the first layer in f32 card = "
+            "CPU")
     mistral = phase_dense_gqa(cfg=mcfg, f32_layers=1, prefill_f32=False,
                               **dense_kw)
     phase14_s = time.perf_counter() - t14
@@ -3673,8 +4019,8 @@ def main(argv=None) -> int:
 
     # ---- 13. the count against the card (run inside the phases above) -----
     phase13_s = sum(c["phase_s"] for c in cost_cells)
-    print(f"== 13. the count against the card, {len(cost_cells)} cells in "
-          f"{phase13_s:.1f} s ({card}):")
+    section(f"== 13. the count against the card, {len(cost_cells)} cells in "
+            f"{phase13_s:.1f} s ({card}):")
     print("  cell | GFLOP | GB | t_compute ms | t_memory ms | bound ms | "
           "measured ms | ratio | dominant | roofline fraction | peak GB | "
           "temp B | requested B (allowance) | allocated B")
@@ -3687,6 +4033,15 @@ def main(argv=None) -> int:
               f" {c['temp_bytes']:,} | {c['requested_bytes']:,} "
               f"({c['scratch_bytes'] + SCALAR_SLACK:,}) | "
               f"{c['growth_bytes']:,}")
+
+    # ---- 15. the mesh ----------------------------------------------------
+    section("== 15. the mesh: (a) a one-rank NCCL mesh (1, 1) = no mesh on "
+            "qwen1.5-0.5b (prefill, decode, a train step in f32 and one "
+            "with bf16 products); (b) K1's log-sum-exp and its merge over 2 "
+            "and 16 key shards; (c) "
+            "qwen1.5-0.5b decode_32k counted on (16, 16)")
+    meshed = phase_mesh(torch, np, device, kernels, steps, api, adamw,
+                        get_arch, OptimizerConfig, ShapeConfig, dops, gen)
 
     # ---- summary ---------------------------------------------------------
     launches = {"decode_attention": served["launches"]["decode_attention"],
@@ -3778,6 +4133,11 @@ def main(argv=None) -> int:
              prefill_cell["launches"]["flash_attention"])):
         row_of[name][key.split(" ", 1)[1]] = sub_row_of(slice14[key],
                                                         launches_14)
+    # phase 15's K1 with its log-sum-exp (bf16, qwen2.5-14b's heads): the
+    # card's one-rank mesh decodes by heads, so the main path launches it
+    # 0 times; a mesh of 2 or more "model" ranks takes it once a layer
+    row_of["decode_attention"]["lse qwen2.5-14b"] = sub_row_of(
+        meshed["b"][2], 0)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
@@ -3811,6 +4171,7 @@ def main(argv=None) -> int:
              "slice14_cases": slice14, "qwen2.5-14b": qwen25,
              "mistral-large-123b CARD": mistral, "phase14_s": phase14_s,
              "cost_cells": cost_cells, "phase13_s": phase13_s,
+             "mesh": meshed,
              "total_s": time.perf_counter() - t_start}, indent=1))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

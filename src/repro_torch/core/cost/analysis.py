@@ -30,15 +30,27 @@ The conventions are the reference walker's:
   arguments (params, optimizer state, inputs) included:
   ``argument_bytes + temp_bytes``, as the walker takes them from XLA's
   ``memory_analysis``.
+* **Collectives** (a step under a mesh, its tensors DTensors): each op of
+  the functional collectives (``_c10d_functional``) counts its operand's
+  bytes under its kind, "all-reduce", "all-gather", "reduce-scatter" or
+  "all-to-all", and one in ``collective_count``; its operand and output
+  count in ``hbm_bytes`` too, as the walker counts a collective's.
+  Everything is counted per device: an op on DTensors is handed on to
+  DTensor (the mode returns ``NotImplemented``), which runs it as ops on
+  this rank's local shards and its redistributions as collectives, and
+  those are what the mode counts, once each.  The arguments' bytes are
+  their local shards'.
 """
 from __future__ import annotations
 
+import sys
 import time
 import weakref
 from collections import defaultdict
 from typing import Callable, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, _sharding_prop
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
@@ -61,6 +73,21 @@ _INDEXED = {aten.index_put_, aten._index_put_impl_, aten.index_copy_,
 # reads of the rows an index names (an embedding lookup, a gather): they
 # read as many elements of their source as they write
 _GATHERS = {aten.index, aten.index_select, aten.gather, aten.embedding}
+
+# the functional collectives by name, and the walker's kind of each
+_COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+                "all_reduce_coalesced": "all-reduce",
+                "all_gather_into_tensor": "all-gather",
+                "all_gather_into_tensor_coalesced": "all-gather",
+                "reduce_scatter_tensor": "reduce-scatter",
+                "reduce_scatter_tensor_coalesced": "reduce-scatter",
+                "all_to_all_single": "all-to-all"}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd")
+
+# DTensor's sharding propagator (see _inferring_shapes), imported so that a
+# PyTorch that moves it fails here, rather than count its shape inference
+# as ops of the step
+_PROPAGATOR_FILE = _sharding_prop.__file__
 
 # the counter that kernel wrappers report to, if one is active
 _ACTIVE = None
@@ -92,7 +119,31 @@ def _storage_key(t: torch.Tensor) -> int:
 
 
 def _tensors(tree) -> List[torch.Tensor]:
-    return [x for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+    """The tensors of a tree, a DTensor as its local shard."""
+    return [x._local_tensor if isinstance(x, DTensor) else x
+            for x in tree_flatten(tree)[0] if isinstance(x, torch.Tensor)]
+
+
+def _inferring_shapes() -> bool:
+    """Whether DTensor's sharding propagator is running the op: the first
+    time it meets an op's input layout it runs the op on ``meta`` tensors
+    of the global shapes to learn the output's shape, which is no op of
+    the step."""
+    f = sys._getframe(2)
+    while f is not None:
+        if f.f_code.co_filename == _PROPAGATOR_FILE:
+            return True
+        f = f.f_back
+    return False
+
+
+def collective_kind(func) -> str:
+    """The walker's kind of a functional collective, "bookkeeping" for the
+    namespace's other ops (waits and autograd wrappers, which move
+    nothing), else ""."""
+    if func.namespace not in _COLLECTIVE_NAMESPACES:
+        return ""
+    return _COLLECTIVES.get(func._overloadpacket.__name__, "bookkeeping")
 
 
 def _indexed_bytes(ins: List[torch.Tensor]) -> int:
@@ -125,6 +176,9 @@ class CostCounter(TorchDispatchMode):
         super().__init__()
         self.flops = 0
         self.hbm_bytes = 0
+        self.collective_bytes: Dict[str, int] = defaultdict(int)
+        self.collective_count = 0
+        self._dtensors = False
         self.by_op: Dict[str, Dict[str, int]] = defaultdict(
             lambda: {"flops": 0, "bytes": 0, "count": 0})
         # the arguments' storages, which the caller holds for the whole step
@@ -182,10 +236,29 @@ class CostCounter(TorchDispatchMode):
     # -- dispatch -----------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            self._dtensors = True
+            return NotImplemented     # counted as DTensor's local ops
         kwargs = kwargs or {}
+        if self._dtensors and _inferring_shapes():
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
         packet = func._overloadpacket
         outs = _tensors(out)
+        kind = collective_kind(func)
+        if kind == "bookkeeping":             # waits, autograd wrappers
+            self._add(str(packet), 0, 0)
+            return out
+        if kind:
+            operand = _tensors((args, kwargs))[0]
+            nbytes = tensor_bytes(operand)
+            self.collective_bytes[kind] += nbytes
+            self.collective_count += 1
+            self._add(str(packet), 0,
+                      nbytes + sum(tensor_bytes(t) for t in outs))
+            for t in outs:
+                self._hold(t)
+            return out
         flops = 0
         if packet in _PRODUCTS:
             flops = flop_registry[packet](*args, **kwargs, out_val=out)
@@ -220,18 +293,18 @@ class CostCounter(TorchDispatchMode):
     # -- the report ---------------------------------------------------------
 
     def report(self, outputs=()) -> Dict:
-        """The walker's keys (``analyze_compiled``'s, one chip, no
-        collectives), ``by_op`` and ``storages``, the number of storages
-        the step's ops made."""
+        """The walker's keys (``analyze_compiled``'s, per device), ``by_op``
+        and ``storages``, the number of storages the step's ops made."""
         out_keys = {}
         for t in _tensors(outputs):
             out_keys.setdefault(_storage_key(t), t.untyped_storage().nbytes())
         return {
             "flops": self.flops,
             "hbm_bytes": self.hbm_bytes,
-            "collective_bytes": 0,
-            "collective_breakdown": {},
-            "collective_count": 0,
+            "collective_bytes": sum(self.collective_bytes.values()),
+            "collective_breakdown": dict(sorted(
+                self.collective_bytes.items())),
+            "collective_count": self.collective_count,
             "argument_bytes": self.argument_bytes,
             "output_bytes": sum(out_keys.values()),
             "temp_bytes": self.peak_bytes - self.argument_bytes,

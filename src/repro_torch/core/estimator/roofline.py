@@ -10,6 +10,13 @@ Copies of the reference's ``CompilePlan`` (the fields read here) and
 
 and a step takes at least their largest.  No queueing, launch overhead or
 padding loss enters, so it is a lower bound on the measured time.
+
+The link term is the reference's: a step's per-device collective operand
+bytes (``core.cost.analysis``) over one link's rate in one direction
+(``h100_sxm``'s ``LinkModel``, 25 GB/s), as the reference's perf harness
+takes it (``bidirectional_ici=False``).  An H100 has 18 such links, so
+within one NVLink node the term is an upper bound on the collectives'
+time, not the least it could be.
 """
 from __future__ import annotations
 
@@ -23,9 +30,9 @@ from repro_torch.core.hw import SystemDescription
 class CompilePlan:
     """The reference plan's knob that the roofline reads, the products'
     dtype.  Its others tile the task-graph compiler's ops, which the port
-    does not build, or set the link direction, which waits for sharding:
-    the links' rate here is one direction's, as the reference's perf
-    harness takes it (``bidirectional_ici=False``)."""
+    does not build, or set the link direction: the links' rate here is one
+    direction's, as the reference's perf harness takes it
+    (``bidirectional_ici=False``)."""
 
     dtype: str = "bfloat16"
 

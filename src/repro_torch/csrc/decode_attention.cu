@@ -47,7 +47,9 @@
 // that it then resets, merges them, so a call is one launch.  With one split
 // a block writes the output itself.  (m, l, acc) are f32 throughout, m
 // starts at -1e30 and the output is acc / max(l, 1e-30), so a row with no
-// valid key gives 0, as on the TPU.
+// valid key gives 0, as on the TPU.  On request each query row's log-sum-exp
+// (m + log l; -inf with no valid key) goes out beside it, so that calls over
+// disjoint key ranges of one cache (a cache sharded by keys) merge.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -169,6 +171,12 @@ __device__ __forceinline__ void load_tile(T* Ks, T* Vs, const T* kb, const T* vb
   cp_async_commit();
 }
 
+// A row's log-sum-exp of its scaled scores from its running max m and sum
+// l; -inf for a row with no valid key (l == 0).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : -INFINITY;
+}
+
 // After a block wrote its partials (m, l, acc) for `nheads` query rows from
 // row0: the last of the nsplit blocks of this (b, kv head, head chunk) to
 // finish merges them into the output (threadFenceReduction's pattern: each
@@ -177,8 +185,8 @@ __device__ __forceinline__ void load_tile(T* Ks, T* Vs, const T* kb, const T* vb
 // over hd with the splits' rows loaded eight at a time.
 template <typename T, int HD, int NW>
 __device__ __forceinline__ void finish_splits(const float* part_ml, const float* part_acc,
-                                              int* counter, T* out, size_t row0,
-                                              int nheads, int nsplit, int hd) {
+                                              int* counter, T* out, float* lse,
+                                              size_t row0, int nheads, int nsplit, int hd) {
   constexpr int EPL = HD / 32;
   __shared__ int last;
   __threadfence();
@@ -219,6 +227,7 @@ __device__ __forceinline__ void finish_splits(const float* part_ml, const float*
 #pragma unroll
     for (int e = 0; e < EPL; ++e)
       if (d0 + e < hd) store(out + row * hd + d0 + e, at[e] * inv);
+    if (lse != nullptr && lane == 0) lse[row] = row_lse(mx, lt);
   }
   if (threadIdx.x == 0) *counter = 0;  // ready for the next call
 }
@@ -232,7 +241,7 @@ template <typename T, int HD, int GP>
 __global__ void __launch_bounds__(Split<T, HD, GP>::NT)
 split_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ kv_len,
-             T* __restrict__ out, float* part_ml, float* part_acc,
+             T* __restrict__ out, float* __restrict__ lse, float* part_ml, float* part_acc,
              int* __restrict__ counters, int Hkv, int G, int S, int hd,
              int chunk, int stages, float scale) {
   using L = Split<T, HD, GP>;
@@ -405,6 +414,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < EPL; ++e)
           if (d0 + e < hd) store(out + row * hd + d0 + e, acc[h][e] * inv);
+        if (lse != nullptr && lane == 0) lse[row] = row_lse(m[h], l[h]);
       } else {
         const size_t ps = row * nsplit + split;
         if (lane == 0) {
@@ -419,7 +429,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (nsplit > 1)
     finish_splits<T, HD, NW>(part_ml, part_acc, counters + (size_t)bk * gridDim.z + blockIdx.z,
-                                 out, row0, min(GP, G - g0), nsplit, hd);
+                                 out, lse, row0, min(GP, G - g0), nsplit, hd);
 }
 
 // ---------------------------------------------------------------------------
@@ -462,7 +472,8 @@ template <int HD>
 __global__ void __launch_bounds__(32 * kMmaWarps)
 mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
            const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_len,
-           __nv_bfloat16* __restrict__ out, float* part_ml, float* part_acc,
+           __nv_bfloat16* __restrict__ out, float* __restrict__ lse, float* part_ml,
+           float* part_acc,
            int* __restrict__ counters, int Hkv, int G, int S, int chunk, int stages,
            float scale) {
   using T = __nv_bfloat16;
@@ -625,6 +636,7 @@ mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
     const size_t row = row0 + g;
     if (nsplit == 1) {
       out[row * HD + d] = __float2bfloat16(at / fmaxf(lt, 1e-30f));
+      if (lse != nullptr && d == 0) lse[row] = row_lse(mx, lt);
     } else {
       const size_t ps = row * nsplit + split;
       if (d == 0) {
@@ -636,13 +648,13 @@ mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
   }
   if (nsplit > 1)
     finish_splits<T, HD, kMmaWarps>(part_ml, part_acc,
-                                    counters + (size_t)bk * gridDim.z + blockIdx.z, out, row0,
-                                    nheads, nsplit, HD);
+                                    counters + (size_t)bk * gridDim.z + blockIdx.z, out, lse,
+                                    row0, nheads, nsplit, HD);
 }
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* kv_len,
-                       void* out, float* ws, int* counters, int B, int Hkv, int G, int S,
+                       void* out, float* lse, float* ws, int* counters, int B, int Hkv, int G, int S,
                        int nsplit, int chunk, cudaStream_t st) {
   using T = __nv_bfloat16;
   if (chunk % kMmaTile != 0 || (size_t)chunk * nsplit < (size_t)S) return cudaErrorInvalidValue;
@@ -660,7 +672,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   const dim3 grid(B * Hkv, nsplit, (G + kMaxChunk - 1) / kMaxChunk);
   mma_kernel<HD><<<grid, 32 * kMmaWarps, mma_smem_bytes<HD>(stages), st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kv_len), static_cast<T*>(out), part_ml, part_acc, counters, Hkv,
+      static_cast<const int*>(kv_len), static_cast<T*>(out), lse, part_ml, part_acc, counters, Hkv,
       G, S, chunk, stages, 1.0f / sqrtf((float)HD));
   return cudaGetLastError();
 }
@@ -675,7 +687,7 @@ size_t smem_bytes(int stages) {
 
 template <typename T, int HD, int GP>
 cudaError_t launch_split(const void* q, const void* k, const void* v,
-                         const void* kv_len, void* out, float* ws, int* counters, int B,
+                         const void* kv_len, void* out, float* lse, float* ws, int* counters, int B,
                          int Hkv, int G, int S, int hd, int nsplit, int chunk,
                          cudaStream_t st) {
   constexpr int TK = Split<T, HD, GP>::TK;
@@ -698,17 +710,17 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   const dim3 grid(B * Hkv, nsplit, (G + kMaxChunk - 1) / kMaxChunk);
   split_kernel<T, HD, GP><<<grid, Split<T, HD, GP>::NT, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kv_len), static_cast<T*>(out), part_ml, part_acc,
+      static_cast<const int*>(kv_len), static_cast<T*>(out), lse, part_ml, part_acc,
       counters, Hkv, G, S, hd, chunk, stages, 1.0f / sqrtf((float)hd));
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch_group(const void* q, const void* k, const void* v,
-                         const void* kv_len, void* out, float* ws, int* cnt, int B,
+                         const void* kv_len, void* out, float* lse, float* ws, int* cnt, int B,
                          int Hkv, int G, int S, int hd, int nsplit, int chunk,
                          cudaStream_t st) {
-#define DA_ARGS q, k, v, kv_len, out, ws, cnt, B, Hkv, G, S, hd, nsplit, chunk, st
+#define DA_ARGS q, k, v, kv_len, out, lse, ws, cnt, B, Hkv, G, S, hd, nsplit, chunk, st
   if (G == 1) return launch_split<T, HD, 1>(DA_ARGS);
   if (G == 2) return launch_split<T, HD, 2>(DA_ARGS);
   if (G <= 4) return launch_split<T, HD, 4>(DA_ARGS);
@@ -719,19 +731,21 @@ cudaError_t launch_group(const void* q, const void* k, const void* v,
 
 template <typename T>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v,
-                         const void* kv_len, void* out, float* ws, int* cnt, int B,
+                         const void* kv_len, void* out, float* lse, float* ws, int* cnt, int B,
                          int Hkv, int G, int S, int hd, int nsplit, int chunk,
                          cudaStream_t st) {
-  if (hd <= 32) return launch_group<T, 32>(q, k, v, kv_len, out, ws, cnt, B, Hkv, G, S, hd, nsplit, chunk, st);
-  if (hd <= 64) return launch_group<T, 64>(q, k, v, kv_len, out, ws, cnt, B, Hkv, G, S, hd, nsplit, chunk, st);
-  if (hd <= 128) return launch_group<T, 128>(q, k, v, kv_len, out, ws, cnt, B, Hkv, G, S, hd, nsplit, chunk, st);
+  if (hd <= 32) return launch_group<T, 32>(q, k, v, kv_len, out, lse, ws, cnt, B, Hkv, G, S, hd, nsplit, chunk, st);
+  if (hd <= 64) return launch_group<T, 64>(q, k, v, kv_len, out, lse, ws, cnt, B, Hkv, G, S, hd, nsplit, chunk, st);
+  if (hd <= 128) return launch_group<T, 128>(q, k, v, kv_len, out, lse, ws, cnt, B, Hkv, G, S, hd, nsplit, chunk, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q, out: (B, Hq, hd); k, v: (B, Hkv, S, hd); kv_len: (B,) int32; all
-// contiguous on the device.  The keys split into nsplit chunks of `chunk`
+// contiguous on the device.  lse, when not null: (B, Hq) f32, each row's
+// log-sum-exp of its scaled scores (-inf for a row with no valid key), so
+// that calls over disjoint key ranges merge.  The keys split into nsplit chunks of `chunk`
 // keys, a multiple of the kernel's key tile (kernels/decode_attention/ops.py
 // `_key_tile` computes it: 64 for the tensor-core kernel, bf16 with a group
 // of 5 or more and hd 64 or 128; else Split<>::TK).  With nsplit > 1, ws is an
@@ -740,7 +754,7 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v,
 // dtype 0 = float32, 1 = bfloat16.  One kernel launch; returns its
 // cudaError_t (0 when it was accepted).
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* kv_len, void* out, void* ws,
+                                const void* kv_len, void* out, void* lse, void* ws,
                                 void* counters, int B, int Hq, int Hkv, int S,
                                 int hd, int nsplit, int chunk, int dtype,
                                 void* stream) {
@@ -751,11 +765,12 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   float* w = static_cast<float*>(ws);
   int* c = static_cast<int*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dtype<float>(q, k, v, kv_len, out, w, c, B, Hkv, G, S, hd, nsplit, chunk, st);
+  float* ls = static_cast<float*>(lse);
+  if (dtype == 0) return launch_dtype<float>(q, k, v, kv_len, out, ls, w, c, B, Hkv, G, S, hd, nsplit, chunk, st);
   if (dtype != 1) return cudaErrorInvalidValue;
-  if (G >= 5 && hd == 64) return launch_mma<64>(q, k, v, kv_len, out, w, c, B, Hkv, G, S, nsplit, chunk, st);
-  if (G >= 5 && hd == 128) return launch_mma<128>(q, k, v, kv_len, out, w, c, B, Hkv, G, S, nsplit, chunk, st);
-  return launch_dtype<__nv_bfloat16>(q, k, v, kv_len, out, w, c, B, Hkv, G, S, hd, nsplit, chunk, st);
+  if (G >= 5 && hd == 64) return launch_mma<64>(q, k, v, kv_len, out, ls, w, c, B, Hkv, G, S, nsplit, chunk, st);
+  if (G >= 5 && hd == 128) return launch_mma<128>(q, k, v, kv_len, out, ls, w, c, B, Hkv, G, S, nsplit, chunk, st);
+  return launch_dtype<__nv_bfloat16>(q, k, v, kv_len, out, ls, w, c, B, Hkv, G, S, hd, nsplit, chunk, st);
 }
 
 extern "C" const char* decode_attention_error_string(int err) {

@@ -19,7 +19,8 @@ from repro_torch.core.cost.analysis import note, tensor_bytes
 from repro_torch.kernels import _build, counters, sm_count
 from repro_torch.kernels._grad import refuse_grad
 from repro_torch.kernels.decode_attention import ref
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
+                                                      merge_partials)
 
 # kernel launches (one per call), counted where the kernel is launched and
 # nowhere else
@@ -30,7 +31,7 @@ WAVES = 2               # blocks per SM that _num_splits aims at
 MHA_TILES = 4           # key tiles a group-1 block takes before a split
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 
 
 def _key_tile(group: int, hd: int, dtype: torch.dtype) -> int:
@@ -96,10 +97,12 @@ def _check(q, k, v, kv_len) -> None:
         raise ValueError("decode_attention: tensors must be contiguous")
 
 
-def cost(q, k, v, kv_len, keys: int = None) -> tuple:
+def cost(q, k, v, kv_len, keys: int = None, with_lse: bool = False
+         ) -> tuple:
     """(FLOPs, bytes) of one call: the two products, q k^T and p v, over
     ``keys`` cache positions summed over the rows, 4 Hq hd keys; q, kv_len
-    and those positions of k and v read once, the output written once.
+    and those positions of k and v read once, the output (and each row's
+    log-sum-exp, f32, when asked for) written once.
     ``keys`` defaults to the whole cache, B S: a dry run cannot read
     ``kv_len`` and the reference's XLA decode counts every position; a
     caller that knows ``kv_len`` passes the positions it covers."""
@@ -108,7 +111,8 @@ def cost(q, k, v, kv_len, keys: int = None) -> tuple:
     keys = B * S if keys is None else keys
     return (4 * Hq * hd * keys,
             2 * tensor_bytes(q) + tensor_bytes(kv_len)
-            + 2 * Hkv * hd * k.element_size() * keys)
+            + 2 * Hkv * hd * k.element_size() * keys
+            + (4 * B * Hq if with_lse else 0))
 
 
 def scratch_bytes(q, k, sms: int) -> int:
@@ -124,23 +128,29 @@ def scratch_bytes(q, k, sms: int) -> int:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_len: torch.Tensor) -> torch.Tensor:
+                     kv_len: torch.Tensor, *, return_lse: bool = False):
     """softmax(q k^T / sqrt(hd)) v over positions < kv_len[b].
 
     q: (B, Hq, hd); k, v: (B, Hkv, S, hd); kv_len: (B,) int32, on the same
     device.  Returns (B, Hq, hd) in q.dtype; a row with kv_len <= 0 gives 0.
+    With ``return_lse`` it returns (out, lse), lse (B, Hq) f32 each row's
+    log-sum-exp of its scaled scores (-inf for a row with no valid key):
+    calls over disjoint key ranges of one cache then merge
+    (:func:`merge_partials`).
     """
     global launches
     _check(q, k, v, kv_len)
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, kv_len)
+        return decode_attention_ref(q, k, v, kv_len, return_lse=return_lse)
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: no kernel for {q.device}")
     refuse_grad("decode_attention", q, k, v)
     out = torch.empty_like(q)
-    note("decode_attention", cost, q, k, v, kv_len)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    note("decode_attention", cost, q, k, v, kv_len, with_lse=return_lse)
     if q.device.type == "meta":
-        return out
+        return (out, lse) if return_lse else out
     B, Hq, hd = q.shape
     _, Hkv, S, _ = k.shape
     group = Hq // Hkv
@@ -156,13 +166,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         cnt = counters("decode_attention", q.device, B * Hkv * -(-group // 16))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-             out.data_ptr(), ws if ws is None else ws.data_ptr(),
+             out.data_ptr(), None if lse is None else lse.data_ptr(),
+             ws if ws is None else ws.data_ptr(),
              cnt if cnt is None else cnt.data_ptr(), B, Hq, Hkv, S, hd, nsplit,
              _chunk(S, tile, nsplit), _DTYPES[q.dtype], stream)
     _build.check("decode_attention", err)
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-__all__ = ["decode_attention", "decode_attention_ref", "cost",
-           "scratch_bytes", "ref"]
+__all__ = ["decode_attention", "decode_attention_ref", "merge_partials",
+           "cost", "scratch_bytes", "ref"]

@@ -6,6 +6,15 @@ Appends each result to ``<out_dir>/<arch>_<shape>.jsonl``.
 
     PYTHONPATH=src python -m repro_torch.launch.perf --arch qwen1.5-0.5b \\
         --shape decode_32k --tag baseline
+    PYTHONPATH=src python -m repro_torch.launch.perf --arch qwen2.5-14b \\
+        --shape decode_32k --single-pod [--seq-parallel 0]
+
+``--single-pod`` (16 x 16) or ``--multi-pod`` (2 x 16 x 16) counts the
+cell as rank 0 of a production mesh (``launch.dryrun.count_on_mesh``),
+``seq_parallel`` defaulting to decode's: the terms are per
+device, the collective term from the counted collective bytes, and
+``useful_flops`` is the step's over the mesh's ranks.  Sequence-parallel
+train or prefill is not ported (``NotImplementedError``).
 
 The plan's dtype is the model's compute dtype: the port runs an f32 model's
 products on the CUDA cores and a bf16 model's on the tensor cores.  The
@@ -19,12 +28,13 @@ import json
 import math
 import os
 import time
+from typing import Optional
 
 from repro_torch.core.config import LM_SHAPES, get_arch
 from repro_torch.core.cost.analysis import top_contributors
 from repro_torch.core.estimator.roofline import CompilePlan, roofline_terms
 from repro_torch.core.hw import h100_sxm
-from repro_torch.launch.dryrun import count_cell
+from repro_torch.launch.dryrun import count_cell, count_on_mesh
 from repro_torch.models import api
 
 OUT_DIR = "runs/perf_torch"
@@ -80,7 +90,8 @@ def useful_flops(cfg, shape) -> float:
 def roofline(rep: dict, cfg, useful: float, system=None) -> dict:
     """The roofline fields of a count ``rep`` of one step of ``cfg`` on one
     chip of ``system`` (the H100 by default), ``useful`` FLOPs of it the
-    step's useful work (:func:`useful_flops`)."""
+    step's useful work on that chip (:func:`useful_flops`, over the ranks
+    of a mesh)."""
     system = system or h100_sxm()
     plan = CompilePlan(dtype=cfg.compute_dtype)
     t_c, t_m, t_i = roofline_terms(rep["flops"], rep["hbm_bytes"],
@@ -101,17 +112,26 @@ def roofline(rep: dict, cfg, useful: float, system=None) -> dict:
 
 def run_cell(arch_id: str, shape_name: str, *, remat: str = "full",
              tag: str = "baseline", show_top: int = 8,
-             out_dir: str = OUT_DIR) -> dict:
+             out_dir: str = OUT_DIR, multi_pod: Optional[bool] = None,
+             seq_parallel: Optional[bool] = None) -> dict:
+    """One cell: one chip when ``multi_pod`` is None, else rank 0 of the
+    single-pod (False) or multi-pod (True) mesh, ``seq_parallel``
+    defaulting to decode's."""
     cfg = get_arch(arch_id).model
     shape = LM_SHAPES[shape_name]
     t0 = time.perf_counter()
-    rep = count_cell(cfg, shape, remat=remat)
+    if multi_pod is None:
+        rep = count_cell(cfg, shape, remat=remat)
+        rep.update(mesh="1", chips=1, seq_parallel=False)
+    else:
+        rep = count_on_mesh(cfg, shape, multi_pod, seq_parallel, remat)
     wall = time.perf_counter() - t0
-    out = {"tag": tag, "arch": arch_id, "shape": shape_name, "mesh": "1",
-           "remat": remat, "seq_parallel": False,
+    out = {"tag": tag, "arch": arch_id, "shape": shape_name,
+           "mesh": rep["mesh"], "chips": rep["chips"], "remat": remat,
+           "seq_parallel": rep["seq_parallel"],
            "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
            "model_flops": api.model_flops(cfg, shape),
-           "useful_flops": useful_flops(cfg, shape)}
+           "useful_flops": useful_flops(cfg, shape) / rep["chips"]}
     out.update(roofline(rep, cfg, out["useful_flops"]))
     out["trace_s"] = wall
     out["collective_breakdown"] = rep["collective_breakdown"]
@@ -140,9 +160,17 @@ def main(argv=None):
     p.add_argument("--tag", default="baseline")
     p.add_argument("--remat", default="full")
     p.add_argument("--out", default=OUT_DIR)
+    mesh = p.add_mutually_exclusive_group()
+    mesh.add_argument("--single-pod", action="store_true")
+    mesh.add_argument("--multi-pod", action="store_true")
+    p.add_argument("--seq-parallel", type=int, default=-1)
     args = p.parse_args(argv)
     run_cell(args.arch, args.shape, remat=args.remat, tag=args.tag,
-             out_dir=args.out)
+             out_dir=args.out,
+             multi_pod=True if args.multi_pod else False if args.single_pod
+             else None,
+             seq_parallel=None if args.seq_parallel < 0
+             else bool(args.seq_parallel))
 
 
 if __name__ == "__main__":

@@ -1,10 +1,14 @@
 """Step functions (PyTorch twin of ``repro.launch.steps``): train, prefill
-and decode."""
+and decode.  Under a mesh the caller runs a step inside
+``sharding.activation_rules(mesh, seq_parallel=...)`` with its arguments
+distributed (``sharding.distribute_tree`` of ``launch.mesh.shardings_for``),
+as the reference's launchers do."""
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.config import ModelConfig, OptimizerConfig, ShapeConfig
 from repro_torch.models import api
@@ -19,7 +23,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     ``v`` and ``ef`` are updated in place and returned (the gradient is taken
     through detached aliases of the leaves, so the caller's tensors never
     require grad); metrics are the loss's and the optimizer's, as 0-d
-    tensors on the params' device."""
+    tensors on the params' device.  Under a mesh each gradient is laid out
+    as its param (a sum still pending over the batch shards is reduced
+    there: the data-parallel reduction of a replicated param)."""
 
     def train_step(params, opt_state, batch):
         items = adamw.named_leaves(params)
@@ -29,7 +35,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
             loss, metrics = api.loss_fn(live, cfg, batch, remat=remat)
             grads = torch.autograd.grad(loss, [alias[p] for p, _ in items])
         grads = adamw.tree_like(params, {
-            path: g for (path, _), g in zip(items, grads)})
+            path: g.redistribute(p.device_mesh, p.placements)
+            if isinstance(g, DTensor) else g
+            for (path, p), g in zip(items, grads)})
         params, opt_state, opt_metrics = adamw.adamw_update(
             params, grads, opt_state, opt_cfg)
         metrics = {k: v.detach() for k, v in metrics.items()}

@@ -21,6 +21,7 @@ import math
 import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch import sharding as sh
 from repro_torch.core.config import ModelConfig, ShapeConfig
 from repro_torch.models import dilated_vgg as DVGG
 from repro_torch.models import encdec as ED
@@ -33,7 +34,15 @@ _LM_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 _ENCDEC_FAMILIES = ("encdec", "audio")
 
 
+# the families that run under a mesh (``repro_torch.sharding``)
+MESH_FAMILIES = ("dense",)
+
+
 def _mod(cfg: ModelConfig):
+    if sh.active_mesh() is not None and cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} under a mesh is not ported "
+            f"yet; the port shards {MESH_FAMILIES} (ROADMAP.md item 14b)")
     if cfg.family in _LM_FAMILIES:
         return LM
     if cfg.family in _ENCDEC_FAMILIES:

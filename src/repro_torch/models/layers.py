@@ -5,14 +5,27 @@ projections are 2-D ``(d_in, d_out)`` matrices (stacked to ``(L, d_in,
 d_out)`` by the stack), so a JAX param tree maps onto this one key for key.
 Initialisers draw from an explicit ``torch.Generator`` and allocate on its
 device; they use the reference's distributions and scales, not its bits.
+
+Under a mesh (``repro_torch.sharding``) the params and activations are
+DTensors, and each product makes its collectives explicit rather than left
+to DTensor's choice of strategy: the weight's FSDP shard is gathered over
+"data" and its "model" shard kept; the activation's contraction dim is laid
+out on "model" as the weight's d_in is (gathered before a column-parallel
+product, sliced before a row-parallel one); an activation's batch shard is
+never gathered.  A row-parallel product's pending sum over "model" is
+all-reduced at its output.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch import sharding as sh
 
 Params = Dict[str, Any]
 
@@ -73,12 +86,57 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype,
     return p
 
 
+def cast_before_reduce() -> bool:
+    """``REPRO_BF16_AR`` (default on), read at each call: the products'
+    output dtype is the compute dtype, so a row-parallel product's sum over
+    "model" is reduced in bf16 (f32 accumulation inside each product; only
+    the reduction across shards is rounded).  ``REPRO_BF16_AR=0`` gives f32
+    products, reduced in f32, then cast."""
+    return os.environ.get("REPRO_BF16_AR", "1") != "0"
+
+
+def product_operands(x: DTensor, w: DTensor) -> Tuple[DTensor, DTensor]:
+    """(x, w) laid out for ``x @ w`` under a mesh: w's FSDP shard gathered
+    and its "model" shard kept; x's contraction dim on "model" as w's d_in
+    is (sharded when w is row-parallel, else gathered), its other
+    placements (the batch's) kept."""
+    w = sh.gather_fsdp(w)
+    want = Shard(x.ndim - 1) if sh.on_model(w) == Shard(0) else Replicate()
+    return sh.with_placement(x, "model", want), w
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 2-D ``w``: ``torch.matmul`` on one chip; under a mesh
+    one 2-D product over x's rows (``torch.matmul`` may expand ``w`` over
+    a DTensor's batch instead, and copy it a row)."""
+    if not isinstance(x, DTensor):
+        return torch.matmul(x, w)
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(x.shape[:-1] + (w.shape[-1],))
+
+
 def linear(p: Params, x: torch.Tensor, compute_dtype=torch.bfloat16
            ) -> torch.Tensor:
     """``x @ w (+ b)``.  The product comes out in the compute dtype (the
     reference's default cast-before-reduce: f32 accumulation inside the
-    product, one rounding at its output); the bias is added in f32."""
-    y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    product, one rounding at its output); the bias is added in f32.  With
+    ``REPRO_BF16_AR=0`` the product comes out in f32 from bf16 operands
+    upcast to f32, which is exact (``torch.mm`` has no bf16 -> f32 form
+    that runs on the CPU or under DTensor), then rounds once.  Under a mesh
+    the operands are laid out by :func:`product_operands` and a pending
+    sum is reduced before the bias and the rounding."""
+    x, w = x.to(compute_dtype), p["w"].to(compute_dtype)
+    if isinstance(x, DTensor):
+        x, w = product_operands(x, w)
+    if cast_before_reduce():
+        y = _matmul(x, w)
+    else:
+        y = _matmul(x.float(), w.float())
+    if isinstance(y, DTensor) and isinstance(sh.on_model(y), Partial):
+        # a row-parallel product's sum, all-reduced as the reference's
+        # compiled program reduces it (a later constrain to "embed" keeps
+        # each rank's slice)
+        y = sh.with_placement(y, "model", Replicate())
     if "b" in p:
         y = y.float() + p["b"].float()
     return y.to(compute_dtype)
@@ -96,15 +154,34 @@ def init_norm(d: int, kind: str, dtype, device=None) -> Params:
     return p
 
 
+def _mean_last(t: torch.Tensor) -> torch.Tensor:
+    """The mean over the last dim, kept.  Under a mesh that dim may be
+    sharded on "model": its pending sum is all-reduced here (DTensor left
+    to itself scatters a pending mean over the batch), then divided."""
+    if not isinstance(t, DTensor):
+        return t.mean(dim=-1, keepdim=True)
+    s = t.sum(dim=-1, keepdim=True)
+    if isinstance(sh.on_model(s), Partial):
+        s = sh.with_placement(s, "model", Replicate())
+        # its gradient, replicated, reaches each rank's partial sum whole
+        # (DTensor would leave it pending and reduce the (B, S, D) product
+        # that expands it)
+        s = sh.grad_as(s, s.placements)
+    return s / t.shape[-1]
+
+
 def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     if "bias" in p:  # layernorm
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, keepdim=True, correction=0)
+        mu = _mean_last(xf)
+        if isinstance(xf, DTensor):
+            var = _mean_last((xf - mu).square())
+        else:
+            var = xf.var(dim=-1, keepdim=True, correction=0)
         y = (xf - mu) * torch.rsqrt(var + eps)
         y = y * p["scale"].float() + p["bias"].float()
     else:  # rmsnorm
-        ms = xf.square().mean(dim=-1, keepdim=True)
+        ms = _mean_last(xf.square())
         y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
     return y.to(x.dtype)
 
@@ -258,6 +335,8 @@ def init_ffn(gen: torch.Generator, d_model: int, d_ff: int, act: str,
 
 def apply_ffn(p: Params, x: torch.Tensor, act: str,
               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    if isinstance(x, DTensor):   # one gather over "model" for both products
+        x = sh.with_placement(x.to(compute_dtype), "model", Replicate())
     h = linear(p["w_up"], x, compute_dtype)
     if act == "swiglu":
         g = linear(p["w_gate"], x, compute_dtype)
@@ -388,15 +467,49 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
 
 def embed(p: Params, tokens: torch.Tensor, compute_dtype=torch.bfloat16
           ) -> torch.Tensor:
+    if isinstance(tokens, DTensor):
+        return _embed_sharded(p["table"], tokens, compute_dtype)
     return p["table"][tokens].to(compute_dtype)
 
 
+def _embed_sharded(table: DTensor, tokens: DTensor, compute_dtype
+                   ) -> DTensor:
+    """The lookup under a mesh: the table's FSDP shard gathered; with its
+    vocab on "model" each rank looks up the tokens of its own rows, zero
+    for the others, and the rows' sum is left pending over "model" (the
+    caller's layout reduces it: one nonzero term an element, so exact)."""
+    table = sh.gather_fsdp(table)
+    vocab_sharded = sh.on_model(table) == Shard(0)
+    rows = table.to_local().shape[0] if vocab_sharded else table.shape[0]
+    first = sh.model_rank(table.device_mesh) * rows if vocab_sharded else 0
+
+    def lookup(tab, tok):
+        idx = tok.long() - first
+        hit = (idx >= 0) & (idx < rows)
+        out = tab[idx.clamp(0, rows - 1)] * hit[..., None].to(tab.dtype)
+        return out.to(compute_dtype)
+
+    md = sh.mesh_dim(tokens.device_mesh, "model")
+    out_place = list(tokens.placements)
+    if md is not None:
+        out_place[md] = Partial() if vocab_sharded else Replicate()
+    # a rank looks up its own batch rows: the table's gradient is partial
+    # over the axes the tokens are sharded on
+    grad = tuple(Partial() if isinstance(t, Shard) else p
+                 for t, p in zip(tokens.placements, table.placements))
+    return sh.run_local(lookup, tuple(out_place), table, tokens,
+                        in_grad_placements=(grad, tokens.placements))
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """``x @ w`` of compute-dtype operands, summed and returned in f32."""
+    """``x @ w`` of compute-dtype operands, summed and returned in f32
+    (laid out by :func:`product_operands` under a mesh)."""
     x, w = x.to(compute_dtype), w.to(compute_dtype)
+    if isinstance(x, DTensor):
+        x, w = product_operands(x, w)
     if compute_dtype != torch.float32:
         x, w = x.float(), w.float()
-    return torch.matmul(x, w)
+    return _matmul(x, w)
 
 
 def logits_from_embedding(p: Params, x: torch.Tensor, softcap: float = 0.0,

@@ -10,8 +10,10 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as sh
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -34,11 +36,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
 def _head(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     cd = L.dtype_of(cfg.compute_dtype)
     if cfg.tie_embeddings:
-        return L.logits_from_embedding(p["embed"], x, cfg.logit_softcap, cd)
+        return sh.constrain(
+            L.logits_from_embedding(p["embed"], x, cfg.logit_softcap, cd),
+            ("batch", "seq", "vocab"))
     logits = L.dot_f32(x, p["lm_head"]["w"], cd)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits
+    return sh.constrain(logits, ("batch", "seq", "vocab"))
 
 
 def _embed_inputs(p: Params, cfg: ModelConfig,
@@ -52,7 +56,7 @@ def _embed_inputs(p: Params, cfg: ModelConfig,
     if cfg.frontend is not None and cfg.frontend.kind != "none" \
             and "prefix_embeds" in batch:
         x = torch.cat([batch["prefix_embeds"].to(cd), x], dim=1)
-    return x
+    return sh.constrain(x, ("batch", "seq", "embed"))
 
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
@@ -76,9 +80,42 @@ def _chunk_nll(p: Params, cfg: ModelConfig, h: torch.Tensor,
                targets: torch.Tensor, mask: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     logits = _head(p, h, cfg).float()
+    if isinstance(logits, DTensor):
+        nll = _nll_sharded(logits, targets)
+        return torch.sum(nll * mask), torch.sum(mask)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0]
     return torch.sum(nll * mask), torch.sum(mask)
+
+
+def _nll_sharded(logits: DTensor, targets: DTensor) -> DTensor:
+    """-log softmax(logits)[target] under a mesh, the logits (B, c, V) laid
+    out with their vocab on "model": the max and the sum of exponentials
+    are reduced over "model" (DTensor's pending max and sum) and each rank
+    picks the targets within its own vocab rows, their sum reduced too; the
+    logits are never gathered.  (B, c) f32, replicated over "model"."""
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    m = sh.with_placement(m, "model", Replicate())
+    lse = torch.log(sh.with_placement(
+        torch.exp(logits - m).sum(dim=-1, keepdim=True), "model",
+        Replicate())) + m
+    vocab_sharded = sh.on_model(logits) == Shard(2)
+    rows = logits.to_local().shape[-1]
+    first = sh.model_rank(logits.device_mesh) * rows if vocab_sharded else 0
+
+    def pick(lg, tg):
+        idx = tg.long() - first
+        hit = (idx >= 0) & (idx < rows)
+        got = torch.gather(lg, -1, idx.clamp(0, rows - 1)[..., None])[..., 0]
+        return got * hit
+
+    md = sh.mesh_dim(logits.device_mesh, "model")
+    place = list(targets.placements)
+    if md is not None:
+        place[md] = Partial() if vocab_sharded else Replicate()
+    picked = sh.with_placement(sh.run_local(pick, place, logits, targets),
+                               "model", Replicate())
+    return lse[..., 0] - picked
 
 
 def chunked_xent(p: Params, cfg: ModelConfig, h: torch.Tensor,
@@ -88,18 +125,31 @@ def chunked_xent(p: Params, cfg: ModelConfig, h: torch.Tensor,
     head projection and log-softmax run per chunk of ``chunk`` positions
     under activation checkpointing, so the backward recomputes one chunk's
     logits at a time.  A ragged last chunk is taken as it is (the reference
-    pads it and masks the padding out)."""
+    pads it and masks the padding out).  Under a mesh the chunks' sums
+    stay pending over the batch shards and are reduced once, at the
+    division."""
     Bz, S, _ = h.shape
     chunk = min(chunk, S)
-    mf = torch.ones((Bz, S), dtype=torch.float32, device=h.device) \
-        if mask is None else mask.float()
-    tot = torch.zeros((), dtype=torch.float32, device=h.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    sharded = isinstance(h, DTensor)
+    if mask is not None:
+        mf = mask.float()
+    elif sharded:                   # in the targets' layout
+        mf = torch.ones_like(targets, dtype=torch.float32)
+    else:
+        mf = torch.ones((Bz, S), dtype=torch.float32, device=h.device)
+    tot = cnt = None                # under a mesh: the first chunk's sums
+    if not sharded:
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for s0 in range(0, S, chunk):
         part = slice(s0, s0 + chunk)
         t, c = checkpoint(_chunk_nll, p, cfg, h[:, part], targets[:, part],
                           mf[:, part], use_reentrant=False)
-        tot, cnt = tot + t, cnt + c
+        tot, cnt = (t, c) if tot is None else (tot + t, cnt + c)
+    if sharded:
+        whole = (Replicate(),) * h.device_mesh.ndim
+        tot = tot.redistribute(h.device_mesh, whole)
+        cnt = cnt.redistribute(h.device_mesh, whole)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -115,6 +165,8 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     loss = chunked_xent(p, cfg, h[:, :-1], targets,
                         None if mask is None else mask[:, 1:])
     aux_coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
+    if isinstance(loss, DTensor):   # a dense model under a mesh: no aux
+        return loss, {"loss": loss, "aux": aux, "total": loss}
     total = loss + aux_coef * aux
     return total, {"loss": loss, "aux": aux, "total": total}
 
@@ -170,6 +222,7 @@ def decode_step(p: Params, cfg: ModelConfig, state: Params,
     the cache in place and returns (logits (B, V) f32, the same state)."""
     cd = L.dtype_of(cfg.compute_dtype)
     x = L.embed(p["embed"], tokens[:, None], cd)
+    x = sh.constrain(x, ("batch", None, "embed"))
     x, state, _ = B.apply_stack(p["stack"], x, cfg, mode="decode",
                                 cache=state, pos=pos)
     x = L.apply_norm(p["final_norm"], x, cfg.norm_eps)

@@ -11,6 +11,10 @@ visited in sorted key order, as ``jax.tree.leaves`` does, so the global norm
 sums them in the same order.  ``adamw_update`` writes the new params, ``m``,
 ``v`` and ``ef`` into the given tensors in place (no copy of the model or
 its state per step) and returns them.
+
+Under a mesh the leaves are DTensors: the global norm costs one scalar
+all-reduce per mesh axis (:func:`global_norm`) and the update runs on each
+rank's own shards, in place, with no other communication.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import re
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.core.config import OptimizerConfig
 
@@ -74,18 +80,47 @@ def init_opt_state(params: Params, cfg: OptimizerConfig) -> Dict:
     return state
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's own shard (its storage), or ``t`` itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _copies(t: DTensor) -> int:
+    """How many ranks hold each element of ``t``: the sizes of the mesh
+    axes it is not sharded over."""
+    mesh = t.device_mesh
+    return math.prod(mesh.shape[i] for i, p in enumerate(t.placements)
+                     if not isinstance(p, Shard))
+
+
 def global_norm(tree: Params) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf.  Over DTensor leaves each
+    rank sums its own shards (a replicated element counted once over its
+    copies) and the sums are all-reduced over the leaves' mesh, one axis
+    at a time (only its ranks, also where the mesh is part of the world);
+    the norm is a plain tensor, the same on every rank of the mesh."""
     total = 0
+    mesh = None
     for leaf in leaves(tree):
-        total = total + torch.sum(torch.square(leaf.float()))
+        if isinstance(leaf, DTensor):
+            mesh = leaf.device_mesh
+            total = total + torch.sum(torch.square(
+                leaf.to_local().float())) / _copies(leaf)
+        else:
+            total = total + torch.sum(torch.square(leaf.float()))
+    for dim in range(mesh.ndim if mesh is not None else 0):
+        if mesh.shape[dim] > 1:
+            total = funcol.wait_tensor(funcol.all_reduce(
+                total, "sum", (mesh, dim)))
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
 def clip_by_global_norm(grads: Params, max_norm: float
                         ) -> Tuple[Params, torch.Tensor]:
+    """The gradients scaled (each rank's own shards of DTensor leaves)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return _map(lambda g: g.float() * scale, grads), norm
+    return _map(lambda g: _local(g).float() * scale, grads), norm
 
 
 # ---------------------------------------------------------------------------
@@ -139,10 +174,14 @@ def _decay_mask(path: str) -> float:
 def adamw_update(params: Params, grads: Params, state: Dict,
                  cfg: OptimizerConfig) -> Tuple[Params, Dict, Dict]:
     """One AdamW step, in place.  Returns (params, state, {"grad_norm",
-    "lr"})."""
+    "lr"}).  DTensor leaves are updated on each rank's own shards."""
+    if "ef" in state and isinstance(leaves(grads)[0], DTensor):
+        raise NotImplementedError(
+            "int8 gradient compression under a mesh is not ported yet "
+            "(ROADMAP.md item 14b)")
     grads, state = apply_compression(grads, state)
     grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    step = state["step"] + 1
+    step = _local(state["step"]) + 1
     lr = lr_schedule(cfg, step)
     b1, b2, eps = cfg.b1, cfg.b2, cfg.eps
     bc1 = 1.0 - b1 ** step.float()
@@ -150,6 +189,7 @@ def adamw_update(params: Params, grads: Params, state: Dict,
     for (path, p), (_, g), (_, m), (_, v) in zip(
             named_leaves(params), named_leaves(grads), named_leaves(state["m"]),
             named_leaves(state["v"])):
+        p, m, v = _local(p), _local(m), _local(v)
         gf = g.float()
         m_new = b1 * m + (1 - b1) * gf
         v_new = b2 * v + (1 - b2) * torch.square(gf)
@@ -160,5 +200,5 @@ def adamw_update(params: Params, grads: Params, state: Dict,
         p.copy_(p.float() - lr * delta)
         m.copy_(m_new)
         v.copy_(v_new)
-    state["step"].copy_(step)
+    _local(state["step"]).copy_(step)
     return params, state, {"grad_norm": gnorm, "lr": lr}

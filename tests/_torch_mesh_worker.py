@@ -1,0 +1,120 @@
+"""One rank of the port's two-process CPU run on a mesh (``gloo``), for
+``tests/test_torch_mesh_numerics.py``:
+
+    python tests/_torch_mesh_worker.py DIR RANK
+
+reads ``DIR/inputs.pt`` (for each case: an arch, its smoke's (heads, KV
+heads) if they are changed, params and tokens), joins a group of 2 through
+a ``FileStore`` in DIR, and for each case on the ("data", "model") meshes
+(1, 2) and (2, 1) runs the forward, prefill, 4 decode steps with
+``seq_parallel`` off and on, the loss's gradient and one train step, with
+params, state and inputs distributed by ``launch.mesh.shardings_for``.
+Rank 0 writes the whole results to ``DIR/out.pt``.
+"""
+import dataclasses
+import sys
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch import sharding as sh
+from repro_torch.core.config import OptimizerConfig, ShapeConfig, get_arch
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import steps
+from repro_torch.models import api
+from repro_torch.optim import adamw
+
+DECODE_STEPS, MAX_LEN = 4, 8
+
+
+def smoke(arch, heads=None):
+    """The arch's smoke in f32, with (heads, KV heads) when given."""
+    cfg = get_arch(arch).smoke
+    if heads:
+        cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
+            cfg.attention, num_heads=heads[0], num_kv_heads=heads[1]))
+    return dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def full(tree):
+    if isinstance(tree, dict):
+        return {k: full(v) for k, v in tree.items()}
+    return sh.full(tree).detach().clone()
+
+
+def run(cfg, params, tokens, mesh, seq_parallel):
+    B, S = tokens.shape
+    out = {}
+    with sh.activation_rules(mesh, seq_parallel=seq_parallel):
+        train = ShapeConfig("t", S, B, "train")
+        ins = {"tokens": tokens}
+        # the test's optimizer: step 1 at the full learning rate
+        opt_cfg = OptimizerConfig(warmup_steps=0, eps=1e-3)
+        opt = adamw.init_opt_state(params, opt_cfg)
+        specs = mesh_lib.shardings_for(cfg, train, mesh, params, opt, ins)
+        p = sh.distribute_tree(params, specs["params"], mesh)
+        batch = sh.distribute_tree(ins, specs["batch"], mesh)
+        if not seq_parallel:
+            with torch.no_grad():
+                out["forward"] = full(api.forward(p, cfg, batch,
+                                                  remat="none")[0])
+                logits, cache = api.prefill(p, cfg, batch)
+                out["prefill"] = full(logits)
+                out["prefill_cache"] = full(cache)
+            items = adamw.named_leaves(p)
+            alias = {k: v.detach().requires_grad_() for k, v in items}
+            loss, _ = api.loss_fn(adamw.tree_like(p, alias), cfg, batch,
+                                  remat="none")
+            grads = torch.autograd.grad(loss, [alias[k] for k, _ in items])
+            out["loss"] = full(loss)
+            out["grads"] = adamw.tree_like(p, {
+                k: full(g.redistribute(v.device_mesh, v.placements))
+                for (k, v), g in zip(items, grads)})
+            step = steps.make_train_step(cfg, opt_cfg, remat="none")
+            o = sh.distribute_tree(opt, specs["opt_state"], mesh)
+            p2, _, metrics = step(p, o, batch)
+            out["trained"] = full(p2)
+            out["grad_norm"] = full(metrics["grad_norm"])
+        shape = ShapeConfig("d", MAX_LEN, B, "decode")
+        dins = {"tokens": tokens[:, 0],
+                "state": api.allocate_decode_state(cfg, B, MAX_LEN, "cpu")}
+        specs = mesh_lib.shardings_for(cfg, shape, mesh, params, None, dins,
+                                       seq_parallel=seq_parallel)
+        state = sh.distribute_tree(dins["state"], specs["state"], mesh)
+        p = sh.distribute_tree(params, specs["params"], mesh)   # untrained
+        out["state_spec"] = specs["state"]["periods"]["sub0"]["attn"]["k"]
+        logits = []
+        with torch.no_grad():
+            for i in range(DECODE_STEPS):
+                tok = sh.distribute(tokens[:, i], specs["tokens"], mesh)
+                lg, state = api.decode_step(p, cfg, state, tok,
+                                            torch.tensor(i, dtype=torch.int32))
+                logits.append(full(lg))
+        out["decode"] = torch.stack(logits)
+    return out
+
+
+def main(path, rank):
+    dist.init_process_group("gloo", store=dist.FileStore(f"{path}/store", 2),
+                            rank=rank, world_size=2)
+    data = torch.load(f"{path}/inputs.pt")
+    results = {}
+    meshes = {dims: init_device_mesh("cpu", dims,
+                                     mesh_dim_names=("data", "model"))
+              for dims in ((1, 2), (2, 1))}
+    for case, d in data.items():
+        cfg = smoke(d["arch"], d["heads"])
+        for dims, mesh in meshes.items():
+            for sp in (False, True):
+                results[f"{case}:{dims[0]}x{dims[1]}:sp{int(sp)}"] = run(
+                    cfg, d["params"], d["tokens"], mesh, sp)
+    if rank == 0:
+        torch.save(results, f"{path}/out.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]))

@@ -1,0 +1,242 @@
+"""The sharded dry run on virtual meshes (``launch.mesh.virtual_group``):
+per-device FLOPs are the one-chip count over the ranks and the reference
+walker's per-device FLOPs of the same sharded step; collective bytes by
+kind are the walker's, or differ from them as stated; one layer's
+collective bytes are a closed form; the production meshes' decode state
+fits the card only with the cache sharded along its keys.  Smoke sizes
+in f32 on ``meta`` (the kernels' formulas), as ``test_torch_dryrun.py``
+counts one chip."""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+
+from _torch_dryrun_parity import attention_widths
+from _torch_mesh_walker import B, SEQ
+from repro_torch import sharding as sh
+from repro_torch.core.config import LM_SHAPES, ShapeConfig, get_arch
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import api
+
+HERE = Path(__file__).resolve().parent
+MESHES = [(2, 2), (1, 4)]
+MODES = ("train", "prefill", "decode")
+
+
+def smoke(arch, dtype="float32", **kw):
+    return dataclasses.replace(get_arch(arch).smoke, param_dtype=dtype,
+                               compute_dtype=dtype, **kw)
+
+
+def count(cfg, mode, dims=None, seq_parallel=None):
+    """The port's meta count of one smoke step: one chip, or rank 0 of a
+    virtual ("data", "model") mesh of ``dims``."""
+    shape = ShapeConfig("parity", SEQ[mode], B, mode)
+    if dims is None:
+        return dryrun.count_cell(cfg, shape, remat="none")
+    sp = mode == "decode" if seq_parallel is None else seq_parallel
+    with mesh_lib.virtual_group(dims[0] * dims[1]):
+        mesh = init_device_mesh("cpu", dims, mesh_dim_names=("data", "model"))
+        return dryrun.count_cell(cfg, shape, remat="none", mesh=mesh,
+                                 seq_parallel=sp)
+
+
+def bwd_extra(rep, cfg) -> int:
+    """K2's backward's three recomputed products (its formula counts seven,
+    autograd over the reference's attention four): 3/7 of its FLOPs at
+    hd = hd_v, as ``_torch_dryrun_parity.kernel_extra``."""
+    bwd = rep["by_op"].get("flash_attention_bwd", {}).get("flops", 0)
+    hd, hd_v = attention_widths(cfg)
+    return bwd * (2 * hd + hd_v) // (4 * hd + 3 * hd_v)
+
+
+@pytest.fixture(scope="module")
+def walker():
+    """The reference walker's counts of qwen1.5-0.5b's smoke on both
+    meshes, from one subprocess with four CPU devices."""
+    cells = [f"qwen1.5-0.5b:{m}:{d[0]}x{d[1]}" for m in MODES for d in MESHES]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(HERE.parent / "src"), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, str(HERE / "_torch_mesh_walker.py")]
+                         + cells, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("mode", MODES)
+def test_per_device_flops_are_the_chips_share_and_the_walkers(walker, mode,
+                                                              dims):
+    """Every product and kernel splits evenly over the 4 ranks (batch over
+    "data", heads, d_ff and vocab over "model"), so a rank counts a quarter
+    of the chip's FLOPs, with no exception; and what the walker counts for
+    the reference's sharded step, less K2 backward's recomputed products
+    (as on one chip).  Decode with the cache on its keys or on heads alike."""
+    cfg = smoke("qwen1.5-0.5b")
+    one = count(cfg, mode)["flops"]
+    rep = count(cfg, mode, dims)
+    assert rep["flops"] * 4 == one
+    assert rep["flops"] - bwd_extra(rep, cfg) == \
+        walker[f"qwen1.5-0.5b:{mode}:{dims[0]}x{dims[1]}"]["flops"]
+    assert rep["collective_bytes"] > 0
+    if mode == "decode":
+        assert count(cfg, mode, dims, seq_parallel=False)["flops"] \
+            == rep["flops"]
+
+
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("mode", MODES)
+def test_collective_bytes_against_the_walkers(walker, mode, dims):
+    """The port's collective operand bytes by kind against the walker's
+    for the same sharded step.  A reduce-scatter moves the operand an
+    all-reduce would (DTensor scatters a pending sum that is laid out
+    sharded next; GSPMD all-reduces it and slices), so the two count as
+    one kind here.  Prefill and decode are equal but for the embedding
+    lookup on a mesh with a "data" axis: the port gathers the table's FSDP
+    shard and looks up its own rows; GSPMD instead gathers the tokens
+    (a collective-permute and an all-gather), looks up every row in its
+    (vocab, embed) block and permutes the rows back.  Training moves less
+    in the port, of each kind: autograd keeps the gathered weights and
+    block inputs that GSPMD gathers again in the backward, and the port
+    sums the q/k/v (up/gate) input gradients before one reduce-scatter
+    where GSPMD all-reduces each (PERF.md lists the differences)."""
+    cfg = smoke("qwen1.5-0.5b")
+    got = count(cfg, mode, dims)["collective_breakdown"]
+    want = walker[f"qwen1.5-0.5b:{mode}:{dims[0]}x{dims[1]}"][
+        "collective_breakdown"]
+    gathers = got.get("all-gather", 0)
+    reduces = got.get("all-reduce", 0) + got.get("reduce-scatter", 0)
+    assert "all-to-all" not in got
+    if mode == "train":
+        assert gathers < want["all-gather"]
+        assert reduces < want["all-reduce"]
+        return
+    d, m = dims
+    rows = B // d * (1 if mode == "decode" else SEQ[mode])
+    table = tokens = block = 0
+    if d > 1:
+        table = cfg.vocab_size // m * cfg.d_model // d * 4
+        tokens = rows * 4
+        block = rows * cfg.d_model // m * 4
+    assert reduces == want["all-reduce"]
+    assert gathers == want["all-gather"] + table - tokens
+    assert want.get("collective-permute", 0) == tokens + block
+    assert want.get("all-to-all", 0) == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_minitron_flops_split_over_a_kv_replicated_mesh(mode):
+    """minitron's smoke has 2 KV heads for 4 query heads: on (1, 4) each
+    rank runs its one query head against the KV head it reads (the cache
+    and K, V replicated over "model"), still a quarter of the chip."""
+    cfg = smoke("minitron-8b")
+    assert count(cfg, mode, (1, 4))["flops"] * 4 == count(cfg, mode)["flops"]
+
+
+def _layer(cfg, mode="prefill", dims=(2, 2)):
+    """Collective bytes by kind of one layer: two layers' less one's."""
+    one = count(dataclasses.replace(cfg, num_layers=1), mode, dims)
+    two = count(dataclasses.replace(cfg, num_layers=2), mode, dims)
+    kinds = set(one["collective_breakdown"]) | set(two["collective_breakdown"])
+    diff = {k: two["collective_breakdown"].get(k, 0)
+            - one["collective_breakdown"].get(k, 0) for k in kinds}
+    return {k: v for k, v in diff.items() if v}
+
+
+def _closed_form(cfg, out_bytes):
+    """One qwen smoke layer's collectives on (2, 2) in prefill: each weight
+    matrix's FSDP shard gathered over "data" (a quarter of it, in the
+    compute dtype), the attention's and the FFN's input gathered over
+    "model" (half of a rank's rows), the row-parallel outputs of wo and
+    w_down all-reduced over "model" (a rank's rows, ``out_bytes`` an
+    element), and each norm's sum of squares all-reduced (f32)."""
+    e = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)).element_size()
+    a, d, f = cfg.attention, cfg.d_model, cfg.d_ff
+    rows = B // 2 * SEQ["prefill"]
+    weights = (4 * d * a.num_heads * a.head_dim + 3 * d * f) // 4
+    gather = weights * e + 2 * rows * d // 2 * e
+    reduce = 2 * rows * d * out_bytes + 2 * rows * 4
+    return {"all-gather": gather, "all-reduce": reduce}
+
+
+def test_one_layer_collectives_are_the_closed_form(monkeypatch):
+    cfg = smoke("qwen1.5-0.5b")
+    assert _layer(cfg) == _closed_form(cfg, 4)
+    bf16 = smoke("qwen1.5-0.5b", "bfloat16")
+    on = _layer(bf16)
+    assert on == _closed_form(bf16, 2)
+    monkeypatch.setenv("REPRO_BF16_AR", "0")
+    off = _layer(bf16)
+    assert off == _closed_form(bf16, 4)
+    # the row-parallel all-reduce halves in bf16; nothing else moves
+    rows = B // 2 * SEQ["prefill"]
+    assert off["all-reduce"] - on["all-reduce"] == 2 * rows * bf16.d_model * 2
+    assert off["all-gather"] == on["all-gather"]
+
+
+def test_decode_cells_count_collectives_at_full_width():
+    """qwen1.5-0.5b decode_32k on (16, 16) at full width (a cut of 2
+    layers): the cache sharded on its keys, K1 once a layer over a
+    rank's 2,048 keys for all 16 heads, its (out, lse) all-gathered."""
+    cfg = dataclasses.replace(get_arch("qwen1.5-0.5b").model, num_layers=2)
+    rep = dryrun.count_on_mesh(cfg, LM_SHAPES["decode_32k"], multi_pod=False)
+    assert rep["seq_parallel"] and rep["mesh"] == "16x16"
+    k1 = rep["by_op"]["decode_attention"]
+    a = cfg.attention
+    rows, keys = 128 // 16, 32768 // 16
+    assert k1["count"] == 2
+    assert k1["flops"] == 2 * 4 * a.num_heads * a.head_dim * rows * keys
+    assert rep["collective_breakdown"]["all-gather"] > 0
+
+
+def test_mistral_decode_fits_the_card_only_with_the_cache_on_keys():
+    """mistral-large-123b decode_32k on (16, 16): params and state per
+    device from ``shardings_for`` (no trace) fit 80 GB with the KV cache
+    sharded along its keys, and do not without."""
+    cfg, shape = get_arch("mistral-large-123b").model, LM_SHAPES["decode_32k"]
+    params, ins = api.param_shapes(cfg), api.input_specs(cfg, shape)
+    with mesh_lib.virtual_group(256):
+        mesh = mesh_lib.make_production_mesh()
+        per_device = {}
+        for sp in (True, False):
+            specs = mesh_lib.shardings_for(cfg, shape, mesh, params, None,
+                                           ins, seq_parallel=sp)
+            per_device[sp] = sh.local_bytes(params, specs["params"], mesh) \
+                + sh.local_bytes(ins["state"], specs["state"], mesh)
+    assert per_device[True] < 80e9 < per_device[False]
+    # the cache alone: 88 x 2 x 8 heads x 128 x 32768 x 8 rows x 2 bytes
+    cache = 88 * 2 * 8 * 128 * 32768 * 8 * 2
+    assert per_device[False] - per_device[True] == cache - cache // 16
+
+
+def test_non_dense_families_are_not_ported_under_a_mesh():
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        count(smoke("granite-moe-1b-a400m"), "prefill", (2, 2))
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        dryrun.count_on_mesh(get_arch("rwkv6-1.6b").model,
+                             LM_SHAPES["decode_32k"], multi_pod=True)
+
+
+def test_sequence_parallel_training_is_refused():
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        count(smoke("qwen1.5-0.5b"), "train", (2, 2), seq_parallel=True)
+
+
+if __name__ == "__main__":
+    # the six smoke cells' collective bytes by kind, the port's and the
+    # walker's:  PYTHONPATH=src python tests/test_torch_mesh_dryrun.py
+    ref = walker.__wrapped__()
+    for mode in MODES:
+        for dims in MESHES:
+            cell = f"qwen1.5-0.5b:{mode}:{dims[0]}x{dims[1]}"
+            got = count(smoke("qwen1.5-0.5b"), mode, dims)
+            print(cell, "port", got["collective_breakdown"], "walker",
+                  ref[cell]["collective_breakdown"])
