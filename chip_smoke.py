@@ -3036,10 +3036,212 @@ def _k1_lse_case(torch, dops, B, Hq, Hkv, S, hd, lens, dtype, gen) -> dict:
     return row
 
 
+# granite-moe-1b-a400m in phase 15 (a): 4 prompts of 96 tokens, 8 decode
+# steps, a train step of 2 x 256 (as phase 2's granite rows)
+MOE_B, MOE_S, MOE_NEW, MOE_TRAIN = 4, 96, 8, (2, 256)
+# the mesh's bf16 logits against no mesh's: phase 15 (a)'s relative RMS
+# for bf16 products (a one-rank mesh's 2-D products and norms' sums round
+# otherwise than the plain ones; a router near a tie may then choose
+# another expert for a token, which a max |diff| would not tolerate)
+MESH_BF16_RMS = 5e-2
+
+
+def phase_mesh_moe(torch, np, device, mesh, kernels, steps, api, adamw,
+                   get_arch, OptimizerConfig, ShapeConfig, gen) -> dict:
+    """Phase 15 (a) for the MoE family: granite-moe-1b-a400m at full width
+    and depth (24 layers, 32 experts top-8, bf16, random weights from seed
+    17) with no mesh and on the one-rank ``mesh``, its experts on "model":
+    a prefill of 4 x 96 tokens and 8 decode steps from no mesh's cache,
+    then one train step of 2 x 256 with f32 params and bf16 products.  The
+    mesh's logits, loss, gradient norm and param moves are held to no
+    mesh's; K1, K2 and K2's backward are counted in each run; the device
+    ms of a decode step (both) and of the train step (no mesh)."""
+    from repro_torch import sharding as sh
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    cfg = get_arch("granite-moe-1b-a400m").model
+    L, B, S, new = cfg.num_layers, MOE_B, MOE_S, MOE_NEW
+    params = api.init_params(torch.Generator(device).manual_seed(17), cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + new), device=device,
+                           generator=gen, dtype=torch.int32)
+    prefill, serve_step = steps.make_prefill_step(cfg), \
+        steps.make_serve_step(cfg)
+    pspecs = mesh_lib.shardings_for(cfg, ShapeConfig("p", S, B, "prefill"),
+                                    mesh, params, None,
+                                    {"tokens": tokens[:, :S]})
+    want_prefill = {name: 0 for name in kernels}
+    want_prefill["flash_attention"] = L
+    want_decode = {name: 0 for name in kernels}
+    want_decode["decode_attention"] = L * new
+
+    def run_serving(on):
+        """(prefill logits, stacked decode logits, launches of each, the
+        decode state, tokens' layout, rules) with or without the mesh."""
+        # decode lays the cache on its keys where "model" is over 1
+        # (seq_parallel), prefill does not
+        rules = (lambda sp=False: sh.activation_rules(
+            mesh if on else None, seq_parallel=sp and on))
+        p, batch = params, {"tokens": tokens[:, :S]}
+        if on:
+            p = sh.distribute_tree(params, pspecs["params"], mesh)
+            batch = sh.distribute_tree(batch, pspecs["batch"], mesh)
+        reset_counts(kernels)
+        with rules():
+            logits, cache = prefill(p, batch)
+        logits = sh.full(logits)
+        torch.cuda.synchronize()
+        n_pre = launches_of(kernels)
+        if not on:
+            first_cache.append(cache)
+        del cache
+        state = api.grow_decode_state(cfg, first_cache[0], S + new)
+        put = (lambda t: t)
+        if on:
+            dspecs = mesh_lib.shardings_for(
+                cfg, ShapeConfig("d", S + new, B, "decode"), mesh, params,
+                None, {"tokens": tokens[:, S], "state": state},
+                seq_parallel=True)
+            state = sh.distribute_tree(state, dspecs["state"], mesh)
+            put = (lambda t: sh.distribute(t, dspecs["tokens"], mesh))
+        reset_counts(kernels)
+        out = []
+        for i in range(new):
+            with rules(True):
+                lg, state = serve_step(p, state, put(tokens[:, S + i]),
+                                       torch.tensor(S + i, device=device))
+            out.append(sh.full(lg))
+        torch.cuda.synchronize()
+        n_dec = launches_of(kernels)
+        check(n_pre == want_prefill and n_dec == want_decode,
+              f"granite {'mesh' if on else 'no mesh'}: prefill launched "
+              f"{n_pre} (want {want_prefill}), decode {n_dec} (want "
+              f"{want_decode})")
+        tok, at = put(tokens[:, S]), torch.tensor(S, device=device)
+
+        def step():
+            with rules(True):
+                lg, _ = serve_step(p, state, tok, at)
+            return sh.full(lg).argmax(dim=-1).cpu()
+
+        prof = profile_calls(torch, step, 3)
+        return logits, torch.stack(out), n_pre, n_dec, prof
+
+    first_cache = []        # no mesh's prefill cache seeds both decodes
+    pre0, dec0, _, _, prof0 = run_serving(False)
+    pre1, dec1, n_pre, n_dec, prof1 = run_serving(True)
+    del first_cache
+    rms_p, rms_d = _rel_rms(pre1, pre0), _rel_rms(dec1, dec0)
+    err_p = float((pre1 - pre0).abs().max())
+    err_d = float((dec1 - dec0).abs().max())
+    agree = float((dec1.argmax(-1) == dec0.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(pre1).all() and torch.isfinite(dec1).all()),
+          "granite on the mesh: logits not finite")
+    check(rms_p <= MESH_BF16_RMS and rms_d <= MESH_BF16_RMS,
+          f"granite mesh (1, 1) != no mesh: relative RMS prefill {rms_p}, "
+          f"decode {rms_d} (tolerance {MESH_BF16_RMS})")
+    print(f"  (a) {cfg.name} bf16 ({L} layers, {cfg.moe.num_experts} "
+          f"experts top-{cfg.moe.num_experts_per_tok}, {n_params / 1e9:.3f} "
+          f"B params), {B} x {S} prefill + {new} decode steps: mesh (1, 1) vs "
+          f"none: prefill max |diff| {err_p:.3g}, relative RMS {rms_p:.3g}; "
+          f"decode max |diff| {err_d:.3g}, relative RMS {rms_d:.3g} "
+          f"(tolerance {MESH_BF16_RMS}), argmax agreement {agree:.3f}; "
+          f"launches prefill {n_pre}, decode {n_dec}", flush=True)
+    for what, prof in (("decode step, no mesh", prof0),
+                       ("decode step, mesh (1, 1)", prof1)):
+        _print_profile(f"{cfg.name} {what}", prof)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one train step, f32 params and bf16 products, as qwen's -----
+    opt_cfg = OptimizerConfig(warmup_steps=0, eps=1e-3)
+    lr = opt_cfg.lr
+    tb, ts = MOE_TRAIN
+    cfg_t = dataclasses.replace(cfg, param_dtype="float32")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (tb, ts),
+                                     device=device, generator=gen,
+                                     dtype=torch.int32)}
+    p_t = api.init_params(torch.Generator(device).manual_seed(18), cfg_t)
+    p_init = _cast(p_t, lambda t: t.clone())
+    step = steps.make_train_step(cfg_t, opt_cfg, remat="none")
+    opt = adamw.init_opt_state(p_t, opt_cfg)
+    tspecs = mesh_lib.shardings_for(cfg_t, ShapeConfig("t", ts, tb, "train"),
+                                    mesh, p_t, opt, batch)
+    want_t = {name: 0 for name in kernels}
+    want_t.update(flash_attention=L, flash_attention_bwd=L)
+    with sh.activation_rules(mesh):
+        pm = sh.distribute_tree(p_t, tspecs["params"], mesh)
+        om = sh.distribute_tree(opt, tspecs["opt_state"], mesh)
+        bm = sh.distribute_tree(batch, tspecs["batch"], mesh)
+        reset_counts(kernels)
+        pm, _, m1 = step(pm, om, bm)
+        torch.cuda.synchronize()
+        launches_t1 = launches_of(kernels)
+    del om
+    reset_counts(kernels)
+    p_t, opt, m0 = step(p_t, opt, batch)
+    torch.cuda.synchronize()
+    launches_t0 = launches_of(kernels)
+    err_loss = abs(float(m1["loss"].full_tensor()) - float(m0["loss"]))
+    err_aux = abs(float(m1["aux"].full_tensor()) - float(m0["aux"]))
+    err_norm = abs(float(m1["grad_norm"]) - float(m0["grad_norm"]))
+    err_move = moved = sq_err = sq_move = 0.0
+    for a, b, c in zip(adamw.leaves(pm), adamw.leaves(p_t),
+                       adamw.leaves(p_init)):
+        d_mesh, d_none = sh.full(a) - c, b - c
+        err_move = max(err_move, float((d_mesh - d_none).abs().max()))
+        moved = max(moved, float(d_none.abs().max()))
+        sq_err += float((d_mesh - d_none).double().square().sum())
+        sq_move += float(d_none.double().square().sum())
+    rel_move = (sq_err / sq_move) ** 0.5
+    del pm, p_init
+    gc.collect()
+    tol_t = dict(loss=1e-4, grad_norm=1e-3 * float(m0["grad_norm"]),
+                 move=lr / 2, move_rms=5e-2)
+    check(err_loss <= tol_t["loss"] and err_aux <= tol_t["loss"]
+          and err_norm <= tol_t["grad_norm"] and moved > lr / 2
+          and err_move <= tol_t["move"] and rel_move <= tol_t["move_rms"],
+          f"granite mesh train step != no mesh: loss {err_loss}, aux "
+          f"{err_aux}, grad norm {err_norm}, params' move max {moved} (lr "
+          f"{lr}), its max |diff| {err_move}, relative RMS {rel_move} "
+          f"(tolerances {tol_t})")
+    check(launches_t1 == launches_t0 == want_t,
+          f"granite train launches {launches_t1} vs {launches_t0}, want "
+          f"{want_t}")
+    print(f"  (a) {cfg.name} train step {tb} x {ts} (f32 params, bf16 "
+          f"products; lr {lr}, no warmup, eps 1e-3): mesh vs none: |d loss| "
+          f"{err_loss:.3g} (loss {float(m0['loss']):.4f}), |d aux| "
+          f"{err_aux:.3g} (aux {float(m0['aux']):.4f}), |d grad norm| "
+          f"{err_norm:.3g}; params moved up to {moved:.3g}, the moves' max "
+          f"|diff| {err_move:.3g}, relative RMS {rel_move:.3g} (tolerances "
+          f"{tol_t}); launches {launches_t1}", flush=True)
+    prof_t = profile_calls(torch, lambda: step(p_t, opt, batch), 1)
+    _print_profile(f"{cfg.name} train step {tb} x {ts}, no mesh", prof_t)
+    del p_t, opt, m0, m1
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    print(f"  (a) {cfg.name}: {phase_s:.1f} s", flush=True)
+    return dict(params=n_params, prefill_err=err_p, prefill_rel_rms=rms_p,
+                decode_err=err_d, decode_rel_rms=rms_d, argmax_agree=agree,
+                tol=MESH_BF16_RMS, launches_prefill=n_pre,
+                launches_decode=n_dec, decode_profile=prof0,
+                decode_profile_mesh=prof1,
+                train=dict(loss_err=err_loss, aux_err=err_aux,
+                           grad_norm_err=err_norm, max_move=moved,
+                           move_err=err_move, move_rel_rms=rel_move,
+                           tol=tol_t, launches=launches_t1,
+                           profile=prof_t),
+                phase_s=phase_s)
+
+
 def phase_mesh(torch, np, device, kernels, steps, api, adamw, get_arch,
                OptimizerConfig, ShapeConfig, dops, gen) -> dict:
-    """Phase 15: (a) a one-rank NCCL mesh = no mesh, (b) K1's log-sum-exp
-    and its merge over key shards, (c) one sharded dry-run cell."""
+    """Phase 15: (a) a one-rank NCCL mesh = no mesh, for qwen1.5-0.5b and
+    granite-moe-1b-a400m (:func:`phase_mesh_moe`), (b) K1's log-sum-exp
+    and its merge over key shards, (c) two sharded dry-run cells."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -3207,6 +3409,9 @@ def phase_mesh(torch, np, device, kernels, steps, api, adamw, get_arch,
             launches=launches_t1)
         del pm, om, p_t, p_init, opt, m0, m1
         gc.collect()
+    out["a"]["granite"] = phase_mesh_moe(
+        torch, np, device, mesh, kernels, steps, api, adamw, get_arch,
+        OptimizerConfig, ShapeConfig, gen)
     dist.destroy_process_group()
     gc.collect()
     if on_card:
@@ -3218,25 +3423,28 @@ def phase_mesh(torch, np, device, kernels, steps, api, adamw, get_arch,
                              [1, 333, 512, 200], "bfloat16", gen),
                 _k1_lse_case(torch, dops, 4, 40, 8, 4096, 128,
                              [17, 2000, 4096, 1], "bfloat16", gen)]
-    # ---- (c) one sharded dry-run cell ----------------------------------
-    qcfg = get_arch("qwen1.5-0.5b").model
+    # ---- (c) sharded dry-run cells -------------------------------------
     dshape = dryrun.LM_SHAPES["decode_32k"]
-    rep = dryrun.count_on_mesh(qcfg, dshape, multi_pod=False)
-    terms = roofline(rep, qcfg, useful_flops(qcfg, dshape) / rep["chips"])
-    check(rep["collective_bytes"] > 0 and rep["flops"] > 0,
-          "the sharded cell counted no collectives")
-    coll = {k: v / 1e9 for k, v in rep["collective_breakdown"].items()}
-    print(f"  (c) qwen1.5-0.5b decode_32k on {rep['mesh']} (rank 0 of a "
-          f"virtual group, seq_parallel): {rep['flops'] / 1e9:.3f} GFLOP, "
-          f"{rep['hbm_bytes'] / 1e9:.3f} GB, collectives {coll} GB, "
-          f"t_compute {terms['t_compute_ms']:.4f} ms, t_memory "
-          f"{terms['t_memory_ms']:.4f} ms, t_collective "
-          f"{terms['t_collective_ms']:.4f} ms, peak "
-          f"{rep['peak_bytes'] / 1e9:.3f} GB, trace "
-          f"{rep['trace_seconds']:.1f} s", flush=True)
-    out["c"] = dict(flops=rep["flops"], hbm_bytes=rep["hbm_bytes"],
-                    collective_breakdown=rep["collective_breakdown"],
-                    peak_bytes=rep["peak_bytes"], **terms)
+    out["c"] = {}
+    for arch in ("qwen1.5-0.5b", "granite-moe-1b-a400m"):
+        ccfg = get_arch(arch).model
+        rep = dryrun.count_on_mesh(ccfg, dshape, multi_pod=False)
+        terms = roofline(rep, ccfg, useful_flops(ccfg, dshape) / rep["chips"])
+        check(rep["collective_bytes"] > 0 and rep["flops"] > 0,
+              f"the sharded cell of {arch} counted no collectives")
+        coll = {k: v / 1e9 for k, v in rep["collective_breakdown"].items()}
+        print(f"  (c) {arch} decode_32k on {rep['mesh']} (rank 0 of a "
+              f"virtual group, seq_parallel): {rep['flops'] / 1e9:.3f} "
+              f"GFLOP, {rep['hbm_bytes'] / 1e9:.3f} GB, collectives by kind "
+              f"{coll} GB, t_compute {terms['t_compute_ms']:.4f} ms, "
+              f"t_memory {terms['t_memory_ms']:.4f} ms, t_collective "
+              f"{terms['t_collective_ms']:.4f} ms, peak "
+              f"{rep['peak_bytes'] / 1e9:.3f} GB, trace "
+              f"{rep['trace_seconds']:.1f} s", flush=True)
+        out["c"][arch] = dict(
+            flops=rep["flops"], hbm_bytes=rep["hbm_bytes"],
+            collective_breakdown=rep["collective_breakdown"],
+            peak_bytes=rep["peak_bytes"], **terms)
     out["phase_s"] = time.perf_counter() - t0
     print(f"phase 15: {out['phase_s']:.1f} s", flush=True)
     return out
@@ -3494,6 +3702,19 @@ def main(argv=None) -> int:
         "k2 qwen2.5-14b prefill": flash_case(
             torch, F, fops, 4, 40, 8, 128, 128, 128, True, 0,
             dtype="bfloat16", gen=gen)}
+    # phase 15's granite-moe-1b-a400m shapes, bf16 (GQA 16/8, hd 64): the
+    # profiled decode step (4 rows at kv_len 97 in a cache of 104), the
+    # prefill of 4 x 96 and the train step's backward (2 x 256), causal
+    slice15 = {
+        "k1 granite-moe-1b-a400m decode": decode_case(
+            torch, F, dops, MOE_B, 16, 8, MOE_S + MOE_NEW, 64,
+            [MOE_S + 1] * MOE_B, "bfloat16", gen),
+        "k2 granite-moe-1b-a400m prefill": flash_case(
+            torch, F, fops, MOE_B, 16, 8, MOE_S, MOE_S, 64, True, 0,
+            dtype="bfloat16", gen=gen),
+        "bwd granite-moe-1b-a400m train": flash_bwd_case(
+            torch, F, fops, bops, MOE_TRAIN[0], 16, 8, MOE_TRAIN[1],
+            MOE_TRAIN[1], 64, True, 0, dtype="bfloat16", gen=gen)}
     # the scans' backwards.  K4 at rwkv6-1.6b's training shape (B 4 x 32
     # heads of 64, S 512) in f32 and bf16, and at both decay extremes held
     # to the f64 recurrence; a ragged last chunk with hd 30, hd 128 and a
@@ -3562,7 +3783,7 @@ def main(argv=None) -> int:
     for key, rs in slice12.items():
         for row in rs:
             _print_row(key, row)
-    for key, row in slice14.items():
+    for key, row in (*slice14.items(), *slice15.items()):
         _print_row(key, row)
     print("phase 2's cases, host seconds by kind: " + ", ".join(
         f"{name} {secs:.1f}" for name, secs in CASE_S.items()), flush=True)
@@ -4037,9 +4258,11 @@ def main(argv=None) -> int:
     # ---- 15. the mesh ----------------------------------------------------
     section("== 15. the mesh: (a) a one-rank NCCL mesh (1, 1) = no mesh on "
             "qwen1.5-0.5b (prefill, decode, a train step in f32 and one "
-            "with bf16 products); (b) K1's log-sum-exp and its merge over 2 "
-            "and 16 key shards; (c) "
-            "qwen1.5-0.5b decode_32k counted on (16, 16)")
+            "with bf16 products) and on granite-moe-1b-a400m in bf16, its "
+            "experts on \"model\" (prefill, decode, a train step with bf16 "
+            "products); (b) K1's log-sum-exp and its merge over 2 and 16 key "
+            "shards; (c) qwen1.5-0.5b and granite-moe-1b-a400m decode_32k "
+            "counted on (16, 16)")
     meshed = phase_mesh(torch, np, device, kernels, steps, api, adamw,
                         get_arch, OptimizerConfig, ShapeConfig, dops, gen)
 
@@ -4138,6 +4361,18 @@ def main(argv=None) -> int:
     # 0 times; a mesh of 2 or more "model" ranks takes it once a layer
     row_of["decode_attention"]["lse qwen2.5-14b"] = sub_row_of(
         meshed["b"][2], 0)
+    # phase 15's granite-moe-1b-a400m (bf16), with its launches in the
+    # one-rank mesh's prefill, decode steps and train step
+    granite = meshed["a"]["granite"]
+    for name, key, launches_15 in (
+            ("decode_attention", "k1 granite-moe-1b-a400m decode",
+             granite["launches_decode"]["decode_attention"]),
+            ("flash_attention", "k2 granite-moe-1b-a400m prefill",
+             granite["launches_prefill"]["flash_attention"]),
+            ("flash_attention_bwd", "bwd granite-moe-1b-a400m train",
+             granite["train"]["launches"]["flash_attention_bwd"])):
+        row_of[name][key.split(" ", 1)[1]] = sub_row_of(slice15[key],
+                                                        launches_15)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(
@@ -4168,7 +4403,8 @@ def main(argv=None) -> int:
              "prefill_deepseek_f32": pre_d32, "mla_block": block_d,
              "slice12_cases": slice12, "internvl2": vlm,
              "seamless": audio, "phase12_s": phase12_s,
-             "slice14_cases": slice14, "qwen2.5-14b": qwen25,
+             "slice14_cases": slice14, "slice15_cases": slice15,
+             "qwen2.5-14b": qwen25,
              "mistral-large-123b CARD": mistral, "phase14_s": phase14_s,
              "cost_cells": cost_cells, "phase13_s": phase13_s,
              "mesh": meshed,

@@ -153,6 +153,10 @@ def dryrun_cell(arch_id: str, shape_name: str, remat: str = "full",
               f"coll={report['collective_bytes'] / 1e9:.3f}GB "
               f"peak_mem={report['peak_bytes'] / 1e9:.2f}GB "
               f"(arguments {report['argument_bytes'] / 1e9:.2f}GB)")
+        if report["collective_breakdown"]:
+            print("  collectives: " + ", ".join(
+                f"{k} {v / 1e9:.4f}GB"
+                for k, v in report["collective_breakdown"].items()))
     return report
 
 

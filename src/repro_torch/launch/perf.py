@@ -8,6 +8,9 @@ Appends each result to ``<out_dir>/<arch>_<shape>.jsonl``.
         --shape decode_32k --tag baseline
     PYTHONPATH=src python -m repro_torch.launch.perf --arch qwen2.5-14b \\
         --shape decode_32k --single-pod [--seq-parallel 0]
+    PYTHONPATH=src python -m repro_torch.launch.perf \\
+        --arch granite-moe-1b-a400m --shape train_4k --single-pod \\
+        --capacity-factor 2.0
 
 ``--single-pod`` (16 x 16) or ``--multi-pod`` (2 x 16 x 16) counts the
 cell as rank 0 of a production mesh (``launch.dryrun.count_on_mesh``),
@@ -15,6 +18,8 @@ cell as rank 0 of a production mesh (``launch.dryrun.count_on_mesh``),
 device, the collective term from the counted collective bytes, and
 ``useful_flops`` is the step's over the mesh's ranks.  Sequence-parallel
 train or prefill is not ported (``NotImplementedError``).
+``--capacity-factor`` replaces an MoE config's (``<= 0``: dropless), as
+the reference's harness does.
 
 The plan's dtype is the model's compute dtype: the port runs an f32 model's
 products on the CUDA cores and a bf16 model's on the tensor cores.  The
@@ -24,6 +29,7 @@ useful work that ``useful_ratio`` and ``roofline_fraction`` divide is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -113,11 +119,16 @@ def roofline(rep: dict, cfg, useful: float, system=None) -> dict:
 def run_cell(arch_id: str, shape_name: str, *, remat: str = "full",
              tag: str = "baseline", show_top: int = 8,
              out_dir: str = OUT_DIR, multi_pod: Optional[bool] = None,
-             seq_parallel: Optional[bool] = None) -> dict:
+             seq_parallel: Optional[bool] = None,
+             capacity_factor: Optional[float] = None) -> dict:
     """One cell: one chip when ``multi_pod`` is None, else rank 0 of the
     single-pod (False) or multi-pod (True) mesh, ``seq_parallel``
-    defaulting to decode's."""
+    defaulting to decode's; ``capacity_factor``, if given, replaces an MoE
+    config's."""
     cfg = get_arch(arch_id).model
+    if capacity_factor is not None and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
     shape = LM_SHAPES[shape_name]
     t0 = time.perf_counter()
     if multi_pod is None:
@@ -130,7 +141,7 @@ def run_cell(arch_id: str, shape_name: str, *, remat: str = "full",
            "mesh": rep["mesh"], "chips": rep["chips"], "remat": remat,
            "seq_parallel": rep["seq_parallel"],
            "capacity_factor": cfg.moe.capacity_factor if cfg.moe else None,
-           "model_flops": api.model_flops(cfg, shape),
+           "model_flops": api.model_flops(cfg, shape), "flops": rep["flops"],
            "useful_flops": useful_flops(cfg, shape) / rep["chips"]}
     out.update(roofline(rep, cfg, out["useful_flops"]))
     out["trace_s"] = wall
@@ -164,13 +175,15 @@ def main(argv=None):
     mesh.add_argument("--single-pod", action="store_true")
     mesh.add_argument("--multi-pod", action="store_true")
     p.add_argument("--seq-parallel", type=int, default=-1)
+    p.add_argument("--capacity-factor", type=float, default=None)
     args = p.parse_args(argv)
     run_cell(args.arch, args.shape, remat=args.remat, tag=args.tag,
              out_dir=args.out,
              multi_pod=True if args.multi_pod else False if args.single_pod
              else None,
              seq_parallel=None if args.seq_parallel < 0
-             else bool(args.seq_parallel))
+             else bool(args.seq_parallel),
+             capacity_factor=args.capacity_factor)
 
 
 if __name__ == "__main__":

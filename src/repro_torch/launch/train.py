@@ -16,11 +16,12 @@ train step (loss, ``torch.autograd.grad``, AdamW, in place) -> checkpoint
 manager (async, atomic, auto-resume) -> supervisor heartbeats.  ``--smoke``
 selects the reduced config; a caller of :func:`main` may pass a config of
 its own (a cut of a registered one, such as jamba's ``TRAIN_CARD``).  One
-device: this trainer opens no process group.  The dense family's train step
-runs on a mesh too (``sharding.activation_rules`` with params, optimizer
-state and batch distributed by ``launch.mesh.shardings_for``, as
-``launch/dryrun.py`` counts it and ``chip_smoke.py`` phase 15 runs it on a
-one-rank group); the other families' mesh paths are ROADMAP.md item 14b.
+device: this trainer opens no process group.  The dense and MoE (GQA)
+families' train steps run on a mesh too (``sharding.activation_rules`` with
+params, optimizer state and batch distributed by
+``launch.mesh.shardings_for``, as ``launch/dryrun.py`` counts them and
+``chip_smoke.py`` phase 15 runs them on a one-rank group); the other
+families' mesh paths are ROADMAP.md item 14b.
 The decoder-only families train, the recurrent ones
 (RWKV-6, the Mamba hybrid) included, and so does the enc-dec: a VLM batch
 carries random patch embeddings ahead of its tokens, an enc-dec batch

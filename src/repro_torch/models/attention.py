@@ -446,7 +446,7 @@ def apply_attention(p, x, cfg, **kw):
     if cfg.attention.kind == "mla":
         if isinstance(x, DTensor):
             raise NotImplementedError(
-                "MLA under a mesh is not ported yet (ROADMAP.md item 14b)")
+                "MLA under a mesh is not ported yet (ROADMAP.md item 14b-2)")
         return apply_mla(p, x, cfg, **kw)
     return apply_gqa(p, x, cfg, **kw)
 

@@ -134,7 +134,8 @@ def apply_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if ffn == "dense":
         y = L.apply_ffn(p["ffn"], h, cfg.act, cd)
     elif ffn == "moe":
-        y, aux = L.apply_moe(p["ffn_moe"], h, cfg, compute_dtype=cd)
+        y, aux = L.apply_moe(p["ffn_moe"], h, cfg, compute_dtype=cd,
+                             aux_loss=mode == "train")
     else:  # rwkv channel mix: its state joins the time mix's
         y, c = R6.apply_channel_mix(p["rwkv_cm"], h, cfg, mode=mode,
                                     cache=None if cache is None else cache["rwkv_tm"])

@@ -355,7 +355,8 @@ def apply_ffn(p: Params, x: torch.Tensor, act: str,
 # Mixture of Experts: grouped, capacity-based, one-hot dispatch and combine,
 # with the reference's Switch/T5X semantics (tokens over an expert's
 # capacity contribute zero).  The expert products are plain batched matrix
-# products over all E experts, as the reference leaves them to XLA.
+# products over all E experts (a mesh rank's E/m), as the reference leaves
+# them to XLA.
 # ---------------------------------------------------------------------------
 
 
@@ -394,63 +395,212 @@ def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).float()
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg,
-              capacity_factor: Optional[float] = None,
-              compute_dtype=torch.bfloat16
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (G, S, D) groups of tokens (batch rows).  Returns (out, aux_loss).
-
-    The up and gate products come out in the compute dtype (f32 in the
-    reference); with a bf16 compute dtype that is one more rounding of each
-    before the SwiGLU."""
-    m = cfg.moe
-    G0, S0, D = x.shape
-    # re-group long sequences into fixed-size routing groups
+def _group_len(S0: int) -> int:
+    """Tokens in a routing group of a sequence of ``S0``: ``MOE_GROUP_SIZE``
+    when the sequence is a longer multiple of it, else the sequence."""
     if S0 > MOE_GROUP_SIZE and S0 % MOE_GROUP_SIZE == 0:
-        x = x.reshape(G0 * (S0 // MOE_GROUP_SIZE), MOE_GROUP_SIZE, D)
-    G, S, D = x.shape
-    E, K = m.num_experts, m.num_experts_per_tok
-    cf = m.capacity_factor if capacity_factor is None else capacity_factor
-    C = S * K if cf <= 0 else moe_capacity(S, E, K, cf)   # cf <= 0: dropless
+        return MOE_GROUP_SIZE
+    return S0
 
-    logits = torch.einsum("gsd,de->gse", x.float(), p["router"]["w"].float())
-    probs = torch.softmax(logits, dim=-1)                          # (G,S,E)
+
+def _routing_groups(x: torch.Tensor) -> torch.Tensor:
+    """(G0, S0, ...) re-grouped into routing groups of
+    :func:`_group_len` tokens."""
+    S = _group_len(x.shape[1])
+    return x if S == x.shape[1] else x.reshape((-1, S) + tuple(x.shape[2:]))
+
+
+def moe_slots(cfg, S: int, capacity_factor: Optional[float] = None) -> int:
+    """C, an expert's slots in a routing group of ``S`` tokens (S K when
+    the capacity factor is <= 0: dropless)."""
+    m = cfg.moe
+    cf = m.capacity_factor if capacity_factor is None else capacity_factor
+    K = m.num_experts_per_tok
+    return S * K if cf <= 0 else moe_capacity(S, m.num_experts, K, cf)
+
+
+def _route(probs: torch.Tensor, K: int, C: int, experts: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(onehot (G,S,K,E'), dispatch (G,S,E',C), combine (G,S,E',C)) of the
+    experts ``experts`` (ids, E' of them) for router ``probs`` (G,S,E):
+    top-K, renormalised; a choice takes its expert's next slot, earlier
+    tokens first, then earlier choices; past C slots it is dropped.  An
+    expert's slots depend on its own column alone, so a subset of the
+    experts routes as all of them do."""
+    G, S, _ = probs.shape
     gate_vals, gate_idx = torch.topk(probs, K, dim=-1)             # (G,S,K)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-
-    # expert one-hot per choice: (G,S,K,E)
-    onehot = one_hot(gate_idx, E)
-    # position of each (token, choice) within its expert queue; priority:
-    # earlier tokens first, then earlier choices
-    flat = onehot.reshape(G, S * K, E)
-    pos = (torch.cumsum(flat, dim=1) * flat - 1.0).reshape(G, S, K, E)
+    # expert one-hot per choice
+    onehot = (gate_idx[..., None] == experts).float()
+    # position of each (token, choice) within its expert queue
+    flat = onehot.reshape(G, S * K, -1)
+    pos = (torch.cumsum(flat, dim=1) * flat - 1.0).reshape(onehot.shape)
     within_cap = (pos >= 0) & (pos < C)
     pos = torch.clamp(pos, 0, C - 1).long()
 
-    # dispatch one-hot over capacity: (G,S,K,E,C) -> reduce over K
+    # dispatch one-hot over capacity: (G,S,K,E',C) -> reduce over K
     cap_oh = one_hot(pos, C) * within_cap[..., None] \
         * onehot[..., None]
-    dispatch = cap_oh.sum(dim=2)                                   # (G,S,E,C)
+    dispatch = cap_oh.sum(dim=2)
     combine = (cap_oh * gate_vals[..., None, None]).sum(dim=2)
+    return onehot, dispatch, combine
 
-    cd = compute_dtype
+
+def _expert_ffn(x: torch.Tensor, dispatch: torch.Tensor,
+                combine: torch.Tensor, w_up: torch.Tensor,
+                w_gate: torch.Tensor, w_down: torch.Tensor, cd
+                ) -> torch.Tensor:
+    """The experts' SwiGLU on their slots, combined back to (G, S, D): one
+    ``torch.bmm`` an expert bank over the E' experts of ``dispatch``."""
+    G, _, E, C = dispatch.shape
+    D = x.shape[-1]
     xe = torch.einsum("gsec,gsd->egcd", dispatch.to(cd), x.to(cd))
     xe = xe.reshape(E, G * C, D)
-    up = torch.bmm(xe, p["w_up"].to(cd))
-    gate = torch.bmm(xe, p["w_gate"].to(cd))
+    up = torch.bmm(xe, w_up.to(cd))
+    gate = torch.bmm(xe, w_gate.to(cd))
     h = (F.silu(gate.float()) * up.float()).to(cd)
-    ye = torch.bmm(h, p["w_down"].to(cd)).reshape(E, G, C, D)
-    y = torch.einsum("gsec,egcd->gsd", combine.to(cd), ye)
+    ye = torch.bmm(h, w_down.to(cd)).reshape(E, G, C, D)
+    return torch.einsum("gsec,egcd->gsd", combine.to(cd), ye)
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg,
+              capacity_factor: Optional[float] = None,
+              compute_dtype=torch.bfloat16, aux_loss: bool = True
+              ) -> Tuple[torch.Tensor, Any]:
+    """x: (G, S, D) groups of tokens (batch rows).  Returns (out, aux_loss);
+    the aux loss is the number 0.0 when ``aux_loss`` is off (prefill and
+    decode, which drop it; under a mesh it costs two all-reduces).
+
+    The up and gate products come out in the compute dtype (f32 in the
+    reference); with a bf16 compute dtype that is one more rounding of each
+    before the SwiGLU.  Under a mesh: :func:`_apply_moe_sharded`."""
+    if isinstance(x, DTensor):
+        return _apply_moe_sharded(p, x, cfg, capacity_factor, compute_dtype,
+                                  aux_loss)
+    m = cfg.moe
+    G0, S0, D = x.shape
+    x = _routing_groups(x)
+    G, S, D = x.shape
+    E, K = m.num_experts, m.num_experts_per_tok
+    C = moe_slots(cfg, S, capacity_factor)
+
+    logits = torch.einsum("gsd,de->gse", x.float(), p["router"]["w"].float())
+    probs = torch.softmax(logits, dim=-1)                          # (G,S,E)
+    onehot, dispatch, combine = _route(
+        probs, K, C, torch.arange(E, device=x.device))
+
+    cd = compute_dtype
+    y = _expert_ffn(x, dispatch, combine, p["w_up"], p["w_gate"],
+                    p["w_down"], cd)
 
     if "shared" in p:
         y = y + apply_ffn(p["shared"], x, "swiglu", cd)
     if (G, S) != (G0, S0):
         y = y.reshape(G0, S0, D)
+    if not aux_loss:
+        return y, 0.0
 
     # load-balancing aux loss (Switch): E * sum_e f_e * p_e
     density = onehot.sum(dim=2).mean(dim=(0, 1))                   # (E,)
     router_prob = probs.mean(dim=(0, 1))                           # (E,)
+    aux = E * torch.sum(density / K * router_prob)
+    return y, aux
+
+
+def _batch_grad(data: DTensor, w: DTensor) -> Tuple:
+    """Where the gradient of ``w`` is left, a rank having read it against
+    its own batch rows (dim 0) of ``data``: partial over the axes that
+    shard the batch, laid out as ``w`` elsewhere."""
+    return tuple(Partial() if d == Shard(0) else p
+                 for d, p in zip(data.placements, w.placements))
+
+
+def _on_model(t: DTensor, place) -> Tuple:
+    """``t``'s placements with ``place`` on the "model" axis."""
+    md = sh.mesh_dim(t.device_mesh, "model")
+    return tuple(place if i == md else p
+                 for i, p in enumerate(t.placements))
+
+
+def _apply_moe_sharded(p: Params, x: DTensor, cfg,
+                       capacity_factor: Optional[float], cd, aux_loss: bool
+                       ) -> Tuple[DTensor, Any]:
+    """:func:`apply_moe` under a mesh, its experts on "model": each rank
+    routes its own batch rows (routing is per group, so sharding the batch
+    changes no decision) and runs its E/m experts alone.
+
+    * The router's product is split over "model" as x's d_model is (each
+      rank its rows of the replicated router), its sum all-reduced: the
+      (G, S, E) probabilities, replicated over "model".
+    * Each rank gathers x over "model" and its own experts' weights over
+      "data" (their FSDP shard), routes every token to its E/m experts
+      (:func:`_route` on their ids) and runs them (:func:`_expert_ffn`).
+      Its combined output is its experts' share, a sum pending over
+      "model", all-reduced as a row-parallel product's is.
+    * The aux loss's per-expert counts and probability sums are summed over
+      the batch's ranks before the product, as the reference's mean over
+      the global (G, S).
+
+    With E not a multiple of the "model" axis the expert banks are
+    replicated and each rank runs all of them."""
+    m = cfg.moe
+    E, K = m.num_experts, m.num_experts_per_tok
+    mesh = x.device_mesh
+    G0, S0, D = x.shape
+
+    # the router: x's d_model rows against the router's same rows
+    w_r = p["router"]["w"]
+    if isinstance(sh.on_model(x), Shard):
+        w_r = sh.with_placement(w_r, "model", Shard(0))
+    split = sh.on_model(w_r) == Shard(0)
+    logits = sh.run_local(
+        lambda xl, wl: torch.einsum("gsd,de->gse", xl.float(), wl.float()),
+        _on_model(x, Partial() if split else Replicate()), x, w_r,
+        in_grad_placements=(x.placements, _batch_grad(x, w_r)))
+    logits = sh.with_placement(logits, "model", Replicate())
+    probs = torch.softmax(logits, dim=-1)                          # (G,S,E)
+
+    # each rank's experts on its batch rows
+    x = sh.with_placement(x.to(cd), "model", Replicate())
+    w_up, w_gate, w_down = (sh.gather_fsdp(p[k].to(cd))
+                            for k in ("w_up", "w_gate", "w_down"))
+    experts_sharded = sh.on_model(w_up) == Shard(0)
+    n_local = w_up.to_local().shape[0]
+    first = sh.model_rank(mesh) * n_local if experts_sharded else 0
+    C = moe_slots(cfg, _group_len(S0), capacity_factor)
+
+    def experts(xl, pl, wu, wg, wd):
+        xg, pg = _routing_groups(xl), _routing_groups(pl)
+        ids = torch.arange(first, first + n_local, device=xl.device)
+        _, dispatch, combine = _route(pg, K, C, ids)
+        return _expert_ffn(xg, dispatch, combine, wu, wg, wd, cd
+                           ).reshape(xl.shape)
+
+    share = Partial() if experts_sharded else Replicate()
+    rows = _on_model(x, share)
+    grads = (rows, _on_model(probs, share)) + tuple(
+        _batch_grad(x, w) for w in (w_up, w_gate, w_down))
+    y = sh.run_local(experts, rows, x, probs, w_up, w_gate, w_down,
+                     in_grad_placements=grads)
+    y = sh.with_placement(y, "model", Replicate())
+
+    if "shared" in p:
+        y = y + apply_ffn(p["shared"], x, "swiglu", cd)
+    if not aux_loss:
+        return y, 0.0
+
+    # load-balancing aux loss (Switch) over the global (G, S)
+    def counts(pl):
+        return one_hot(torch.topk(pl, K, dim=-1)[1], E).sum(dim=(0, 1, 2))
+
+    whole = (Replicate(),) * mesh.ndim
+    tokens = G0 * S0
+    summed = tuple(Partial() if pl == Shard(0) else Replicate()
+                   for pl in probs.placements)
+    density = sh.run_local(counts, summed, probs.detach()
+                           ).redistribute(mesh, whole) / tokens      # (E,)
+    router_prob = probs.sum(dim=(0, 1)).redistribute(mesh, whole) / tokens
     aux = E * torch.sum(density / K * router_prob)
     return y, aux
 

@@ -72,7 +72,8 @@ def hidden_states(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """Final-norm hidden states (pre-head). Returns (h, aux f32 scalar)."""
     x = _embed_inputs(p, cfg, batch)
     x, _, aux = B.apply_stack(p["stack"], x, cfg, mode="train", remat=remat)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+    if not isinstance(aux, torch.Tensor):      # a stack without MoE
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
     return L.apply_norm(p["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -165,7 +166,8 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *,
     loss = chunked_xent(p, cfg, h[:, :-1], targets,
                         None if mask is None else mask[:, 1:])
     aux_coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
-    if isinstance(loss, DTensor):   # a dense model under a mesh: no aux
+    if isinstance(loss, DTensor) and not isinstance(aux, DTensor):
+        # a dense model under a mesh: no aux
         return loss, {"loss": loss, "aux": aux, "total": loss}
     total = loss + aux_coef * aux
     return total, {"loss": loss, "aux": aux, "total": total}

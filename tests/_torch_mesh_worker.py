@@ -1,13 +1,14 @@
-"""One rank of the port's two-process CPU run on a mesh (``gloo``), for
+"""One rank of the port's CPU run on a mesh (``gloo``), for
 ``tests/test_torch_mesh_numerics.py``:
 
-    python tests/_torch_mesh_worker.py DIR RANK
+    python tests/_torch_mesh_worker.py DIR RANK [WORLD]
 
 reads ``DIR/inputs.pt`` (for each case: an arch, its smoke's (heads, KV
-heads) if they are changed, params and tokens), joins a group of 2 through
-a ``FileStore`` in DIR, and for each case on the ("data", "model") meshes
-(1, 2) and (2, 1) runs the forward, prefill, 4 decode steps with
-``seq_parallel`` off and on, the loss's gradient and one train step, with
+heads) and MoE config if they are changed, params and tokens), joins a
+group of WORLD ranks (2 by default) through a ``FileStore`` in DIR, and
+for each case on the ("data", "model") meshes of ``MESHES[WORLD]`` runs
+the forward, prefill, 4 decode steps with ``seq_parallel`` off and on,
+the loss (its aux term apart too), its gradient and one train step, with
 params, state and inputs distributed by ``launch.mesh.shardings_for``.
 Rank 0 writes the whole results to ``DIR/out.pt``.
 """
@@ -26,14 +27,19 @@ from repro_torch.models import api
 from repro_torch.optim import adamw
 
 DECODE_STEPS, MAX_LEN = 4, 8
+MESHES = {2: ((1, 2), (2, 1)), 4: ((2, 2), (1, 4))}
 
 
-def smoke(arch, heads=None):
-    """The arch's smoke in f32, with (heads, KV heads) when given."""
+def smoke(arch, heads=None, moe=None):
+    """The arch's smoke in f32, with (heads, KV heads) and changes to its
+    MoE config when given."""
     cfg = get_arch(arch).smoke
     if heads:
         cfg = dataclasses.replace(cfg, attention=dataclasses.replace(
             cfg.attention, num_heads=heads[0], num_kv_heads=heads[1]))
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe))
     return dataclasses.replace(cfg, param_dtype="float32",
                                compute_dtype="float32")
 
@@ -65,10 +71,11 @@ def run(cfg, params, tokens, mesh, seq_parallel):
                 out["prefill_cache"] = full(cache)
             items = adamw.named_leaves(p)
             alias = {k: v.detach().requires_grad_() for k, v in items}
-            loss, _ = api.loss_fn(adamw.tree_like(p, alias), cfg, batch,
-                                  remat="none")
+            loss, metrics = api.loss_fn(adamw.tree_like(p, alias), cfg,
+                                        batch, remat="none")
             grads = torch.autograd.grad(loss, [alias[k] for k, _ in items])
             out["loss"] = full(loss)
+            out["aux"] = full(metrics["aux"])
             out["grads"] = adamw.tree_like(p, {
                 k: full(g.redistribute(v.device_mesh, v.placements))
                 for (k, v), g in zip(items, grads)})
@@ -96,16 +103,17 @@ def run(cfg, params, tokens, mesh, seq_parallel):
     return out
 
 
-def main(path, rank):
-    dist.init_process_group("gloo", store=dist.FileStore(f"{path}/store", 2),
-                            rank=rank, world_size=2)
+def main(path, rank, world=2):
+    dist.init_process_group("gloo", store=dist.FileStore(f"{path}/store",
+                                                         world),
+                            rank=rank, world_size=world)
     data = torch.load(f"{path}/inputs.pt")
     results = {}
     meshes = {dims: init_device_mesh("cpu", dims,
                                      mesh_dim_names=("data", "model"))
-              for dims in ((1, 2), (2, 1))}
+              for dims in MESHES[world]}
     for case, d in data.items():
-        cfg = smoke(d["arch"], d["heads"])
+        cfg = smoke(d["arch"], d["heads"], d["moe"])
         for dims, mesh in meshes.items():
             for sp in (False, True):
                 results[f"{case}:{dims[0]}x{dims[1]}:sp{int(sp)}"] = run(
@@ -117,4 +125,4 @@ def main(path, rank):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]))
+    main(sys.argv[1], *(int(a) for a in sys.argv[2:]))

@@ -23,11 +23,13 @@ from repro_torch import sharding as sh
 from repro_torch.core.config import LM_SHAPES, ShapeConfig, get_arch
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import perf
 from repro_torch.models import api
 
 HERE = Path(__file__).resolve().parent
 MESHES = [(2, 2), (1, 4)]
 MODES = ("train", "prefill", "decode")
+GRANITE = "granite-moe-1b-a400m"
 
 
 def smoke(arch, dtype="float32", **kw):
@@ -59,9 +61,10 @@ def bwd_extra(rep, cfg) -> int:
 
 @pytest.fixture(scope="module")
 def walker():
-    """The reference walker's counts of qwen1.5-0.5b's smoke on both
-    meshes, from one subprocess with four CPU devices."""
-    cells = [f"qwen1.5-0.5b:{m}:{d[0]}x{d[1]}" for m in MODES for d in MESHES]
+    """The reference walker's counts of qwen1.5-0.5b's and granite-moe's
+    smokes on both meshes, from one subprocess with four CPU devices."""
+    cells = [f"{a}:{m}:{d[0]}x{d[1]}" for a in ("qwen1.5-0.5b", GRANITE)
+             for m in MODES for d in MESHES]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(HERE.parent / "src"), os.environ.get("PYTHONPATH", "")]))
     out = subprocess.run([sys.executable, str(HERE / "_torch_mesh_walker.py")]
@@ -218,8 +221,10 @@ def test_mistral_decode_fits_the_card_only_with_the_cache_on_keys():
 
 
 def test_non_dense_families_are_not_ported_under_a_mesh():
+    """The families the mesh does not run yet: deepseek-v2 (family "moe")
+    is refused by its MLA attention, RWKV-6 by its family."""
     with pytest.raises(NotImplementedError, match="item 14b"):
-        count(smoke("granite-moe-1b-a400m"), "prefill", (2, 2))
+        count(smoke("deepseek-v2-236b"), "prefill", (2, 2))
     with pytest.raises(NotImplementedError, match="item 14b"):
         dryrun.count_on_mesh(get_arch("rwkv6-1.6b").model,
                              LM_SHAPES["decode_32k"], multi_pod=True)
@@ -228,6 +233,154 @@ def test_non_dense_families_are_not_ported_under_a_mesh():
 def test_sequence_parallel_training_is_refused():
     with pytest.raises(NotImplementedError, match="item 14b"):
         count(smoke("qwen1.5-0.5b"), "train", (2, 2), seq_parallel=True)
+
+
+# ---------------------------------------------------------------------------
+# The MoE family: granite-moe-1b-a400m, its experts on "model"
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("mode", MODES)
+def test_granite_per_device_flops_are_the_chips_share_and_the_walkers(
+        walker, mode, dims):
+    """granite's smoke (4 experts, top-2) with its experts on "model": each
+    rank routes its own batch rows and runs its E/m experts (the dispatch
+    product, the three expert ``bmm``s and the combine over E/m), and the
+    router's product is split over "model" as x's d_model is: a quarter
+    of the chip's FLOPs, and the walker's less K2 backward's recomputed
+    products."""
+    cfg = smoke(GRANITE)
+    one = count(cfg, mode)["flops"]
+    rep = count(cfg, mode, dims)
+    assert rep["flops"] * 4 == one
+    assert rep["flops"] - bwd_extra(rep, cfg) == \
+        walker[f"{GRANITE}:{mode}:{dims[0]}x{dims[1]}"]["flops"]
+
+
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("mode", MODES)
+def test_granite_collective_bytes_against_the_walkers(walker, mode, dims):
+    """granite's collective operand bytes by kind against the walker's.
+    The MoE layer moves what GSPMD's moves: the router's logits
+    all-reduced over "model" (rows E f32), x all-gathered over "model"
+    before the dispatch, the experts' FSDP shards all-gathered over
+    "data", and the combined output all-reduced over "model" (rows D).
+    Prefill and decode differ only as follows (a reduce-scatter counts as
+    an all-reduce, as for the dense family):
+
+    * the embedding lookup on a "data" axis, as the dense family's;
+    * the router's top-k: GSPMD all-gathers the (G, S, E) probabilities
+      over "data" before its top_k (rows E f32 a layer); the port routes
+      each rank's own rows;
+    * on (1, 4) granite's 2 KV heads of 16 put half a head's K on each
+      rank, and GSPMD trades the rope's halves between ranks (two
+      collective-permutes of rows hd/4 f32 a layer, and all-to-alls of
+      twice their bytes); the port gathers K's heads and rotates them on
+      each rank;
+    * decode on (1, 4) lays the cache on its keys: GSPMD all-reduces the
+      softmax's max and sum (B Hq f32 each) and its P.V product twice
+      (B Hq hd f32 each) a layer, where the port all-gathers K1's (out,
+      lse); it gathers B Hq f32 a layer more than GSPMD, its q, new K and
+      V rows and (out, lse) against GSPMD's q and written cache rows.
+
+    No all-to-all of the walker's sits at the experts: besides the rope's,
+    the one of training on (2, 2) is the embedding gradient's
+    scatter-add.  Training moves less in the port, of each kind, as the
+    dense family's, and no collective-permute or all-to-all."""
+    cfg = smoke(GRANITE)
+    got = count(cfg, mode, dims)["collective_breakdown"]
+    want = walker[f"{GRANITE}:{mode}:{dims[0]}x{dims[1]}"][
+        "collective_breakdown"]
+    gathers = got.get("all-gather", 0)
+    reduces = got.get("all-reduce", 0) + got.get("reduce-scatter", 0)
+    assert set(got) <= {"all-gather", "all-reduce", "reduce-scatter"}
+    if mode == "train":
+        assert gathers < want["all-gather"]
+        assert reduces < want["all-reduce"]
+        return
+    d, m = dims
+    a, L, E = cfg.attention, cfg.num_layers, cfg.moe.num_experts
+    rows = B // d * (1 if mode == "decode" else SEQ[mode])
+    table = tokens = block = topk = rope = keys = lse = 0
+    if d > 1:
+        table = cfg.vocab_size // m * cfg.d_model // d * 4
+        tokens = rows * 4
+        block = rows * cfg.d_model // m * 4
+        topk = L * rows * E * 4
+    if a.num_kv_heads % m:
+        rope = L * 2 * rows * a.head_dim // 4 * 4
+        if mode == "decode":
+            keys = L * 2 * rows * a.num_heads * (1 + a.head_dim) * 4
+            lse = L * rows * a.num_heads * 4
+    assert reduces == want["all-reduce"] - keys
+    assert gathers == want["all-gather"] + table - tokens - topk + lse
+    assert want.get("collective-permute", 0) == tokens + block + rope
+    assert want.get("all-to-all", 0) == 2 * rope
+
+
+def test_granite_ranks_hold_their_experts_at_full_size():
+    """granite-moe-1b-a400m on (16, 16), its params laid out by
+    ``shardings_for`` (no trace): each rank holds 2 of the 32 experts'
+    banks ("model"), a sixteenth of each one's d_model rows ("data"), and
+    the whole f32 router."""
+    cfg = get_arch(GRANITE).model
+    params = api.param_shapes(cfg)
+    shape = LM_SHAPES["train_4k"]
+    moe = params["stack"]["periods"]["sub0"]["ffn_moe"]
+    with mesh_lib.virtual_group(256):
+        mesh = mesh_lib.make_production_mesh()
+        specs = mesh_lib.shardings_for(cfg, shape, mesh, params)["params"]
+        spec = specs["stack"]["periods"]["sub0"]["ffn_moe"]
+        held = {k: sh.local_bytes(moe[k], spec[k], mesh)
+                for k in ("w_up", "w_gate", "w_down", "router")}
+        local, off = sh.local_extent(moe["w_up"].shape, sh.placements(
+            spec["w_up"], mesh), mesh, coord=(3, 5))
+    L, E, d, f = cfg.num_layers, 32, cfg.d_model, cfg.moe.d_ff_expert
+    assert (L, d, f) == (24, 1024, 512) and cfg.moe.num_experts == E
+    assert spec["w_up"] == spec["w_gate"] == (None, "model", "data", None)
+    assert spec["w_down"] == (None, "model", None, "data")
+    for k in ("w_up", "w_gate", "w_down"):
+        assert held[k] == L * (E // 16) * (d // 16) * f * 2
+    assert held["router"] == L * d * E * 4
+    # rank (3, 5): experts 10 and 11, rows 192-255
+    assert local == (L, 2, 64, f) and off == (0, 10, 192, 0)
+
+
+def test_first_k_dense_prefix_splits_over_the_mesh():
+    """A dense prefix block in front of the MoE stack (``first_k_dense``,
+    deepseek-v2's layout) runs under a mesh as the dense family's blocks
+    do: still a quarter of the chip.  ``test_torch_mesh_numerics.py``
+    holds its numbers to the reference's."""
+    cfg = smoke(GRANITE)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, first_k_dense=1))
+    for mode in MODES:
+        assert count(cfg, mode, (2, 2))["flops"] * 4 == \
+            count(cfg, mode)["flops"]
+
+
+def test_perf_capacity_factor_sets_the_capacity(tmp_path):
+    """``perf --capacity-factor`` replaces the config's factor, as the
+    reference's harness does: granite's decode_32k (128 rows, 8 of 32
+    experts a token) at the default 1.25 gives each expert C = 4 slots,
+    dropless (-1) C = 8, and the extra slots cost their products, the
+    combine (2 G E dC D) and the three expert products (2 E G dC D F
+    each), a layer.  (The dispatch contracts over one token a row, an
+    elementwise product in both packages, which counts no FLOPs.)"""
+    args = ["--arch", GRANITE, "--shape", "decode_32k", "--out",
+            str(tmp_path)]
+    perf.main(args)
+    perf.main(args + ["--capacity-factor", "-1"])
+    lines = (tmp_path / f"{GRANITE}_decode_32k.jsonl").read_text()
+    default, dropless = (json.loads(line) for line in lines.splitlines())
+    assert (default["capacity_factor"], dropless["capacity_factor"]) == \
+        (1.25, -1.0)
+    cfg = get_arch(GRANITE).model
+    G, E, D, F = 128, 32, cfg.d_model, cfg.moe.d_ff_expert
+    dC = 8 - 4
+    per_layer = 2 * G * E * dC * D + 3 * (2 * E * G * dC * D * F)
+    assert dropless["flops"] - default["flops"] == cfg.num_layers * per_layer
 
 
 if __name__ == "__main__":
