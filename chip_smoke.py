@@ -155,14 +155,19 @@ Phases, in order; any failed check ends the run with a non-zero exit:
    each output equals the same call without a mesh (the tolerance
    printed), each param's move the same within lr / 100 in f32 (lr / 2
    with bf16 products), and K1, K2 and K2's backward launch as often; the
-   host wall
-   of a decode step with and without the mesh (DTensor's dispatch); (b)
+   host wall of a decode step with and without the mesh (DTensor's
+   dispatch); granite-moe-1b-a400m whole in bf16, its experts on "model";
+   jamba-1.5-large-398b ``CARD`` in bf16 (prefill 2 x 128, 8 decode steps;
+   the mesh's DTensors over the same storage) and ``TRAIN_CARD`` in f32
+   (one train step of 2 x 512 through K3's backward), its Mamba channels
+   on "model", K1, K2, K3 and K3's backward counted; (b)
    K1's log-sum-exp against its plain version at phase 2's K1 shape and
    at qwen2.5-14b's (bf16, 40/8 heads of 128), and K1 over the cache cut
    along its keys into 2 and 16 shards (one holding no valid key), merged
-   by log-sum-exp, against K1 over the whole cache; (c) qwen1.5-0.5b
-   decode_32k counted as rank 0 of the (16, 16) mesh in a virtual group:
-   per-device GFLOP, GB, collective GB by kind and ``t_collective``.
+   by log-sum-exp, against K1 over the whole cache; (c) qwen1.5-0.5b's
+   and granite's decode_32k and jamba's long_500k counted as rank 0 of the
+   (16, 16) mesh in a virtual group: per-device GFLOP, GB, collective GB
+   by kind and ``t_collective``.
 
 The last line is ``{"ok": true, "device": {...}}``; ``--out`` also writes
 every number of the run to a JSON file.  The script needs a CUDA
@@ -3237,11 +3242,219 @@ def phase_mesh_moe(torch, np, device, mesh, kernels, steps, api, adamw,
                 phase_s=phase_s)
 
 
+# jamba-1.5-large-398b in phase 15 (a): CARD (its first 5 layers, bf16)
+# prefills 2 prompts of 128 tokens and decodes 8 steps; TRAIN_CARD (its
+# first layer, f32) takes one train step of 2 x 512
+HYB_B, HYB_S, HYB_NEW, HYB_TRAIN = 2, 128, 8, (2, 512)
+
+
+def _share_tree(tree, specs, mesh):
+    """``tree`` as DTensors of ``specs`` on a one-rank ``mesh`` over the
+    leaves' own storage (each rank's shard is the whole leaf), where
+    ``sh.distribute`` copies each shard: two 48 GB trees do not fit on one
+    card."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import sharding as sh
+    check(mesh.size() == 1, "_share_tree takes a one-rank mesh")
+    if isinstance(tree, dict):
+        return {k: _share_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return DTensor.from_local(tree, mesh, sh.placements(specs, mesh),
+                              run_check=False, shape=tree.shape,
+                              stride=tree.stride())
+
+
+def phase_mesh_hybrid(torch, np, device, mesh, kernels, steps, api, adamw,
+                      OptimizerConfig, ShapeConfig, gen) -> dict:
+    """Phase 15 (a) for the hybrid family: jamba-1.5-large-398b ``CARD``
+    (its first 5 layers at full width in bf16, random weights from seed
+    19: every kind of block, 4 Mamba mixers, one attention layer, two MoE
+    FFNs) with no mesh and on the one-rank ``mesh`` over the same storage
+    (``_share_tree``, held by data_ptr), its Mamba channels on "model": a
+    prefill of 2 x 128 tokens and 8 decode steps from no mesh's cache; then
+    ``TRAIN_CARD`` (its first layer) in f32, one train step of 2 x 512
+    through K3's backward, with and without the mesh.  Logits are held to
+    no mesh's at ``MESH_BF16_RMS``, the step's loss, gradient norm and
+    each param's move at qwen's f32 tolerances (moves within lr / 100); K1,
+    K2, K3 and K3's backward are counted in each run."""
+    from repro_torch import sharding as sh
+    from repro_torch.configs.jamba_1_5_large_398b import CARD, TRAIN_CARD
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    cfg = CARD
+    kinds = cfg.layer_kinds()
+    n_ssm, n_attn = kinds.count("ssm"), kinds.count("attn")
+    B, S, new = HYB_B, HYB_S, HYB_NEW
+    params = api.init_params(torch.Generator(device).manual_seed(19), cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + new), device=device,
+                           generator=gen, dtype=torch.int32)
+    batch = {"tokens": tokens[:, :S]}
+    prefill, serve_step = steps.make_prefill_step(cfg), \
+        steps.make_serve_step(cfg)
+    want_prefill = {name: 0 for name in kernels}
+    want_prefill.update(ssm_scan=n_ssm, flash_attention=n_attn)
+    want_decode = {name: 0 for name in kernels}
+    want_decode.update(ssm_scan=n_ssm * new, decode_attention=n_attn * new)
+
+    def decode(p, state, put, on):
+        out = []
+        for i in range(new):
+            with sh.activation_rules(mesh if on else None,
+                                     seq_parallel=on):
+                lg, state = serve_step(p, state, put(tokens[:, S + i]),
+                                       torch.tensor(S + i, device=device))
+            out.append(sh.full(lg))
+        torch.cuda.synchronize()
+        return torch.stack(out)
+
+    # no mesh; its prefill cache seeds both decodes
+    reset_counts(kernels)
+    pre0, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    n_pre0 = launches_of(kernels)
+    state0 = api.grow_decode_state(cfg, cache, S + new)
+    del cache
+    start = _cast(state0, lambda t: t.clone())
+    reset_counts(kernels)
+    dec0 = decode(params, state0, lambda t: t, False)
+    n_dec0 = launches_of(kernels)
+    del state0
+    # the mesh, over the same params
+    pspecs = mesh_lib.shardings_for(cfg, ShapeConfig("p", S, B, "prefill"),
+                                    mesh, params, None, batch)
+    pm = _share_tree(params, pspecs["params"], mesh)
+    shared = all(a.to_local().data_ptr() == b.data_ptr()
+                 for a, b in zip(_leaves(pm), _leaves(params)))
+    check(shared, "jamba CARD's one-rank DTensors copy the params")
+    reset_counts(kernels)
+    with sh.activation_rules(mesh):
+        pre1, _ = prefill(pm, sh.distribute_tree(batch, pspecs["batch"],
+                                                 mesh))
+    pre1 = sh.full(pre1)
+    torch.cuda.synchronize()
+    n_pre1 = launches_of(kernels)
+    dspecs = mesh_lib.shardings_for(
+        cfg, ShapeConfig("d", S + new, B, "decode"), mesh, params, None,
+        {"tokens": tokens[:, S], "state": start}, seq_parallel=True)
+    state1 = sh.distribute_tree(start, dspecs["state"], mesh)
+    del start
+    reset_counts(kernels)
+    dec1 = decode(pm, state1, lambda t: sh.distribute(t, dspecs["tokens"],
+                                                      mesh), True)
+    n_dec1 = launches_of(kernels)
+    check(n_pre0 == n_pre1 == want_prefill and n_dec0 == n_dec1 ==
+          want_decode, f"jamba CARD: prefill launched {n_pre0} / {n_pre1} "
+          f"(no mesh / mesh; want {want_prefill}), decode {n_dec0} / "
+          f"{n_dec1} (want {want_decode})")
+    rms_p, rms_d = _rel_rms(pre1, pre0), _rel_rms(dec1, dec0)
+    err_p = float((pre1 - pre0).abs().max())
+    err_d = float((dec1 - dec0).abs().max())
+    check(bool(torch.isfinite(pre1).all() and torch.isfinite(dec1).all()),
+          "jamba on the mesh: logits not finite")
+    check(rms_p <= MESH_BF16_RMS and rms_d <= MESH_BF16_RMS,
+          f"jamba mesh (1, 1) != no mesh: relative RMS prefill {rms_p}, "
+          f"decode {rms_d} (tolerance {MESH_BF16_RMS})")
+    print(f"  (a) {cfg.name} CARD bf16 ({cfg.num_layers} layers: {n_ssm} "
+          f"Mamba, {n_attn} attention, {cfg.ffn_kinds().count('moe')} MoE; "
+          f"{n_params / 1e9:.2f} B params, the mesh's DTensors over their "
+          f"storage: {shared}), {B} x {S} prefill + {new} decode steps: mesh "
+          f"(1, 1) vs none: prefill max |diff| {err_p:.3g}, relative RMS "
+          f"{rms_p:.3g}; decode max |diff| {err_d:.3g}, relative RMS "
+          f"{rms_d:.3g} (tolerance {MESH_BF16_RMS}); launches prefill "
+          f"{n_pre1}, decode {n_dec1}", flush=True)
+    del params, pm, state1, pre0, pre1, dec0, dec1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- TRAIN_CARD: one train step in f32, K3's backward on the mesh ----
+    opt_cfg = OptimizerConfig(warmup_steps=0, eps=1e-3)
+    lr = opt_cfg.lr
+    tb, ts = HYB_TRAIN
+    cfg_t = dataclasses.replace(TRAIN_CARD, param_dtype="float32",
+                                compute_dtype="float32")
+    tbatch = {"tokens": torch.randint(0, cfg_t.vocab_size, (tb, ts),
+                                      device=device, generator=gen,
+                                      dtype=torch.int32)}
+    p_init = api.init_params(torch.Generator(device).manual_seed(20), cfg_t)
+    step = steps.make_train_step(cfg_t, opt_cfg, remat="none")
+    want_t = {name: 0 for name in kernels}
+    want_t.update(ssm_scan=1, ssm_scan_bwd=1)
+    p_mesh = _cast(p_init, lambda t: t.clone())
+    opt = adamw.init_opt_state(p_mesh, opt_cfg)
+    tspecs = mesh_lib.shardings_for(cfg_t, ShapeConfig("t", ts, tb, "train"),
+                                    mesh, p_mesh, opt, tbatch)
+    with sh.activation_rules(mesh):
+        pm = _share_tree(p_mesh, tspecs["params"], mesh)
+        om = _share_tree(opt, tspecs["opt_state"], mesh)
+        reset_counts(kernels)
+        pm, om, m1 = step(pm, om, sh.distribute_tree(
+            tbatch, tspecs["batch"], mesh))
+        torch.cuda.synchronize()
+        launches_t1 = launches_of(kernels)
+    loss1, norm1 = float(m1["loss"].full_tensor()), float(m1["grad_norm"])
+    del om, opt, m1       # the mesh's moments: 16.8 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    p_t = _cast(p_init, lambda t: t.clone())
+    opt = adamw.init_opt_state(p_t, opt_cfg)
+    reset_counts(kernels)
+    p_t, opt, m0 = step(p_t, opt, tbatch)
+    torch.cuda.synchronize()
+    launches_t0 = launches_of(kernels)
+    loss0, norm0 = float(m0["loss"]), float(m0["grad_norm"])
+    err_move = moved = sq_err = sq_move = 0.0
+    for a, b, c in zip(adamw.leaves(pm), adamw.leaves(p_t),
+                       adamw.leaves(p_init)):
+        d_mesh, d_none = sh.full(a) - c, b - c
+        err_move = max(err_move, float((d_mesh - d_none).abs().max()))
+        moved = max(moved, float(d_none.abs().max()))
+        sq_err += float((d_mesh - d_none).double().square().sum())
+        sq_move += float(d_none.double().square().sum())
+    rel_move = (sq_err / sq_move) ** 0.5
+    tol_t = dict(loss=1e-4, grad_norm=1e-3 * norm0, move=lr / 100,
+                 move_rms=1e-3)
+    err_loss, err_norm = abs(loss1 - loss0), abs(norm1 - norm0)
+    check(err_loss <= tol_t["loss"] and err_norm <= tol_t["grad_norm"]
+          and moved > lr / 2 and err_move <= tol_t["move"]
+          and rel_move <= tol_t["move_rms"],
+          f"jamba TRAIN_CARD mesh train step != no mesh: loss {err_loss}, "
+          f"grad norm {err_norm}, params' move max {moved} (lr {lr}), its "
+          f"max |diff| {err_move}, relative RMS {rel_move} (tolerances "
+          f"{tol_t})")
+    check(launches_t1 == launches_t0 == want_t,
+          f"jamba train launches {launches_t1} vs {launches_t0}, want "
+          f"{want_t}")
+    n_train = sum(t.numel() for t in _leaves(p_init))
+    print(f"  (a) {cfg_t.name} TRAIN_CARD f32 ({n_train / 1e9:.2f} B params)"
+          f" train step {tb} x {ts} (lr {lr}, no warmup, eps 1e-3): mesh vs "
+          f"none: |d loss| {err_loss:.3g} (loss {loss0:.4f}), |d grad norm| "
+          f"{err_norm:.3g}; params moved up to {moved:.3g}, the moves' max "
+          f"|diff| {err_move:.3g}, relative RMS {rel_move:.3g} (tolerances "
+          f"{tol_t}); launches {launches_t1}", flush=True)
+    del p_t, p_mesh, pm, p_init, opt, m0
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    print(f"  (a) {cfg.name}: {phase_s:.1f} s", flush=True)
+    return dict(params=n_params, shared_storage=shared, prefill_err=err_p,
+                prefill_rel_rms=rms_p, decode_err=err_d,
+                decode_rel_rms=rms_d, tol=MESH_BF16_RMS,
+                launches_prefill=n_pre1, launches_decode=n_dec1,
+                train=dict(params=n_train, loss_err=err_loss,
+                           grad_norm_err=err_norm, max_move=moved,
+                           move_err=err_move, move_rel_rms=rel_move,
+                           tol=tol_t, launches=launches_t1),
+                phase_s=phase_s)
+
+
 def phase_mesh(torch, np, device, kernels, steps, api, adamw, get_arch,
                OptimizerConfig, ShapeConfig, dops, gen) -> dict:
-    """Phase 15: (a) a one-rank NCCL mesh = no mesh, for qwen1.5-0.5b and
-    granite-moe-1b-a400m (:func:`phase_mesh_moe`), (b) K1's log-sum-exp
-    and its merge over key shards, (c) two sharded dry-run cells."""
+    """Phase 15: (a) a one-rank NCCL mesh = no mesh, for qwen1.5-0.5b,
+    granite-moe-1b-a400m (:func:`phase_mesh_moe`) and jamba-1.5-large-398b
+    (:func:`phase_mesh_hybrid`), (b) K1's log-sum-exp and its merge over
+    key shards, (c) three sharded dry-run cells."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -3412,6 +3625,9 @@ def phase_mesh(torch, np, device, kernels, steps, api, adamw, get_arch,
     out["a"]["granite"] = phase_mesh_moe(
         torch, np, device, mesh, kernels, steps, api, adamw, get_arch,
         OptimizerConfig, ShapeConfig, gen)
+    out["a"]["jamba"] = phase_mesh_hybrid(
+        torch, np, device, mesh, kernels, steps, api, adamw,
+        OptimizerConfig, ShapeConfig, gen)
     dist.destroy_process_group()
     gc.collect()
     if on_card:
@@ -3424,16 +3640,17 @@ def phase_mesh(torch, np, device, kernels, steps, api, adamw, get_arch,
                 _k1_lse_case(torch, dops, 4, 40, 8, 4096, 128,
                              [17, 2000, 4096, 1], "bfloat16", gen)]
     # ---- (c) sharded dry-run cells -------------------------------------
-    dshape = dryrun.LM_SHAPES["decode_32k"]
     out["c"] = {}
-    for arch in ("qwen1.5-0.5b", "granite-moe-1b-a400m"):
-        ccfg = get_arch(arch).model
+    for arch, sname in (("qwen1.5-0.5b", "decode_32k"),
+                        ("granite-moe-1b-a400m", "decode_32k"),
+                        ("jamba-1.5-large-398b", "long_500k")):
+        ccfg, dshape = get_arch(arch).model, dryrun.LM_SHAPES[sname]
         rep = dryrun.count_on_mesh(ccfg, dshape, multi_pod=False)
         terms = roofline(rep, ccfg, useful_flops(ccfg, dshape) / rep["chips"])
         check(rep["collective_bytes"] > 0 and rep["flops"] > 0,
               f"the sharded cell of {arch} counted no collectives")
         coll = {k: v / 1e9 for k, v in rep["collective_breakdown"].items()}
-        print(f"  (c) {arch} decode_32k on {rep['mesh']} (rank 0 of a "
+        print(f"  (c) {arch} {sname} on {rep['mesh']} (rank 0 of a "
               f"virtual group, seq_parallel): {rep['flops'] / 1e9:.3f} "
               f"GFLOP, {rep['hbm_bytes'] / 1e9:.3f} GB, collectives by kind "
               f"{coll} GB, t_compute {terms['t_compute_ms']:.4f} ms, "
@@ -3714,7 +3931,26 @@ def main(argv=None) -> int:
             dtype="bfloat16", gen=gen),
         "bwd granite-moe-1b-a400m train": flash_bwd_case(
             torch, F, fops, bops, MOE_TRAIN[0], 16, 8, MOE_TRAIN[1],
-            MOE_TRAIN[1], 64, True, 0, dtype="bfloat16", gen=gen)}
+            MOE_TRAIN[1], 64, True, 0, dtype="bfloat16", gen=gen),
+        # and jamba's (CARD in bf16: GQA 64/8, hd 128, d_inner 16384,
+        # d_state 16): the last decode step (2 rows at kv_len 136) and its
+        # Mamba step in place, the prefill of 2 x 128; TRAIN_CARD's f32
+        # step of 2 x 512 (its backward: rows["ssm_scan_bwd"][1])
+        "k1 jamba-1.5-large-398b decode": decode_case(
+            torch, F, dops, HYB_B, 64, 8, HYB_S + HYB_NEW, 128,
+            [HYB_S + HYB_NEW] * HYB_B, "bfloat16", gen),
+        "k2 jamba-1.5-large-398b prefill": flash_case(
+            torch, F, fops, HYB_B, 64, 8, HYB_S, HYB_S, 128, True, 0,
+            dtype="bfloat16", gen=gen),
+        "k3 jamba-1.5-large-398b prefill": ssm_case(
+            torch, sops, HYB_B, HYB_S, 16384, 16, "bfloat16", gen,
+            h0_random=False),
+        "k3 jamba-1.5-large-398b decode": ssm_case(
+            torch, sops, HYB_B, 1, 16384, 16, "bfloat16", gen,
+            in_place=True),
+        "k3 jamba-1.5-large-398b train": ssm_case(
+            torch, sops, *HYB_TRAIN, 16384, 16, "float32", gen,
+            h0_random=False)}
     # the scans' backwards.  K4 at rwkv6-1.6b's training shape (B 4 x 32
     # heads of 64, S 512) in f32 and bf16, and at both decay extremes held
     # to the f64 recurrence; a ragged last chunk with hd 30, hd 128 and a
@@ -4258,11 +4494,14 @@ def main(argv=None) -> int:
     # ---- 15. the mesh ----------------------------------------------------
     section("== 15. the mesh: (a) a one-rank NCCL mesh (1, 1) = no mesh on "
             "qwen1.5-0.5b (prefill, decode, a train step in f32 and one "
-            "with bf16 products) and on granite-moe-1b-a400m in bf16, its "
+            "with bf16 products), on granite-moe-1b-a400m in bf16, its "
             "experts on \"model\" (prefill, decode, a train step with bf16 "
-            "products); (b) K1's log-sum-exp and its merge over 2 and 16 key "
-            "shards; (c) qwen1.5-0.5b and granite-moe-1b-a400m decode_32k "
-            "counted on (16, 16)")
+            "products), and on jamba-1.5-large-398b, its Mamba channels on "
+            "\"model\" (CARD bf16: prefill, decode; TRAIN_CARD f32: a train "
+            "step through K3's backward); (b) K1's log-sum-exp and its merge "
+            "over 2 and 16 key shards; (c) qwen1.5-0.5b and "
+            "granite-moe-1b-a400m decode_32k and jamba-1.5-large-398b "
+            "long_500k counted on (16, 16)")
     meshed = phase_mesh(torch, np, device, kernels, steps, api, adamw,
                         get_arch, OptimizerConfig, ShapeConfig, dops, gen)
 
@@ -4361,18 +4600,39 @@ def main(argv=None) -> int:
     # 0 times; a mesh of 2 or more "model" ranks takes it once a layer
     row_of["decode_attention"]["lse qwen2.5-14b"] = sub_row_of(
         meshed["b"][2], 0)
-    # phase 15's granite-moe-1b-a400m (bf16), with its launches in the
-    # one-rank mesh's prefill, decode steps and train step
-    granite = meshed["a"]["granite"]
+    # phase 15's granite-moe-1b-a400m (bf16) and jamba-1.5-large-398b
+    # (CARD bf16, TRAIN_CARD f32), with their launches in the one-rank
+    # mesh's prefill, decode steps and train step
+    granite, jamba = meshed["a"]["granite"], meshed["a"]["jamba"]
+    slice15["bwd jamba-1.5-large-398b train"] = rows["ssm_scan_bwd"][1]
     for name, key, launches_15 in (
             ("decode_attention", "k1 granite-moe-1b-a400m decode",
              granite["launches_decode"]["decode_attention"]),
             ("flash_attention", "k2 granite-moe-1b-a400m prefill",
              granite["launches_prefill"]["flash_attention"]),
             ("flash_attention_bwd", "bwd granite-moe-1b-a400m train",
-             granite["train"]["launches"]["flash_attention_bwd"])):
+             granite["train"]["launches"]["flash_attention_bwd"]),
+            ("decode_attention", "k1 jamba-1.5-large-398b decode",
+             jamba["launches_decode"]["decode_attention"]),
+            ("flash_attention", "k2 jamba-1.5-large-398b prefill",
+             jamba["launches_prefill"]["flash_attention"]),
+            ("ssm_scan", "k3 jamba-1.5-large-398b prefill",
+             jamba["launches_prefill"]["ssm_scan"]),
+            ("ssm_scan", "k3 jamba-1.5-large-398b decode",
+             jamba["launches_decode"]["ssm_scan"]),
+            ("ssm_scan", "k3 jamba-1.5-large-398b train",
+             jamba["train"]["launches"]["ssm_scan"]),
+            ("ssm_scan_bwd", "bwd jamba-1.5-large-398b train",
+             jamba["train"]["launches"]["ssm_scan_bwd"])):
         row_of[name][key.split(" ", 1)[1]] = sub_row_of(slice15[key],
                                                         launches_15)
+    print("phase 15 (a) jamba's launches on the one-rank mesh: K3 "
+          f"{jamba['launches_prefill']['ssm_scan']} (prefill) + "
+          f"{jamba['launches_decode']['ssm_scan']} (decode) + "
+          f"{jamba['train']['launches']['ssm_scan']} (train), K3's backward "
+          f"{jamba['train']['launches']['ssm_scan_bwd']}, K1 "
+          f"{jamba['launches_decode']['decode_attention']}, K2 "
+          f"{jamba['launches_prefill']['flash_attention']}", flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(

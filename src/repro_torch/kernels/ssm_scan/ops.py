@@ -20,13 +20,20 @@ exactly as before.  CPU tensors get :func:`ssm_scan_ref`, which autograd
 differentiates.  A ``meta`` tensor takes the CUDA route up to the launch and
 reports the kernel's :func:`cost` to ``core.cost.analysis`` instead (a dry
 run); a CUDA call reports it too.
+
+Under a mesh, :func:`ssm_scan_by_channels` runs the op (forward and, under
+grad, :class:`SSMScan`'s backward) on each rank's batch rows and d_inner
+channels under ``local_map``, and names where each input's gradient is
+left: the rank's dB and dC are its channels' share, summed over "model".
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Shard
 
+from repro_torch import sharding as sh
 from repro_torch.core.cost.analysis import note, tensor_bytes
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssm_scan import bwd, ref
@@ -203,5 +210,55 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     return _launch(u, dt, A_log, B, C, D, h0, h), h
 
 
-__all__ = ["ssm_scan", "ssm_scan_fwd", "SSMScan", "ssm_scan_ref", "bwd",
-           "cost", "ref"]
+def ssm_scan_by_channels(u: torch.Tensor, dt: torch.Tensor,
+                         A_log: torch.Tensor, B: torch.Tensor,
+                         C: torch.Tensor, D: torch.Tensor,
+                         h0: torch.Tensor = None, *, in_place: bool = False,
+                         scan=None):
+    """``scan`` (:func:`ssm_scan` by default) from ``h0`` (zeros when None),
+    under a mesh on each rank's batch rows and channels (``local_map``).
+
+    u, dt (Bz, S, di) are laid out alike, their channels on "model" or
+    replicated; h0 (Bz, di, ds) as they are (the decode cache's spec,
+    ("batch", "mlp", None)); B, C (Bz, S, ds) share their batch layout and
+    are replicated over "model"; A_log (di, ds) and D (di,) are replicated
+    params, of which each rank reads the rows of its channels.  So each
+    rank's dB and dC are partial sums over "model" (its channels' share),
+    reduced where they enter B and C, and its dA_log and dD are partial
+    over "model" and over the axes that shard the batch (its rows' share).
+    With ``in_place`` the final state is written into h0's own local shard
+    (the decode step's cache) and h0 returned.  Returns (y, h) laid out as
+    u and h0.  Plain tensors: the op itself."""
+    scan = scan or ssm_scan
+    mesh = u.device_mesh if isinstance(u, DTensor) else None
+    split = mesh is not None and isinstance(sh.on_model(u), Shard)
+    ds = A_log.shape[-1]
+
+    def local(ul, dtl, al, bl, cl, dl, hl=None):
+        n = ul.shape[-1]
+        first = sh.model_rank(mesh) * n if split else 0
+        if hl is None:
+            hl = torch.zeros((ul.shape[0], n, ds), dtype=torch.float32,
+                             device=ul.device)
+        return scan(ul.contiguous(), dtl.contiguous(),
+                    al[first:first + n].contiguous(), bl.contiguous(),
+                    cl.contiguous(), dl[first:first + n].contiguous(), hl,
+                    h_out=hl if in_place else None)
+
+    hs = () if h0 is None else (h0,)
+    if mesh is None:
+        return local(u, dt, A_log, B, C, D, *hs)
+    bc = B.placements
+    if split:   # left pending, a gradient sum meets x_proj's backward
+        B, C = sh.grad_as(B, B.placements), sh.grad_as(C, C.placements)
+        bc = sh.on_model_as(B, Partial())
+    h_place = tuple(Shard(1) if p == Shard(2) else p for p in u.placements)
+    grads = (u.placements, dt.placements, sh.batch_grad(u, A_log, split),
+             bc, bc, sh.batch_grad(u, D, split)) + \
+        tuple(h.placements for h in hs)
+    return sh.run_local(local, [u.placements, h_place], u, dt, A_log, B, C,
+                        D, *hs, in_grad_placements=grads)
+
+
+__all__ = ["ssm_scan", "ssm_scan_fwd", "ssm_scan_by_channels", "SSMScan",
+           "ssm_scan_ref", "bwd", "cost", "ref"]

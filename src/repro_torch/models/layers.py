@@ -508,21 +508,6 @@ def apply_moe(p: Params, x: torch.Tensor, cfg,
     return y, aux
 
 
-def _batch_grad(data: DTensor, w: DTensor) -> Tuple:
-    """Where the gradient of ``w`` is left, a rank having read it against
-    its own batch rows (dim 0) of ``data``: partial over the axes that
-    shard the batch, laid out as ``w`` elsewhere."""
-    return tuple(Partial() if d == Shard(0) else p
-                 for d, p in zip(data.placements, w.placements))
-
-
-def _on_model(t: DTensor, place) -> Tuple:
-    """``t``'s placements with ``place`` on the "model" axis."""
-    md = sh.mesh_dim(t.device_mesh, "model")
-    return tuple(place if i == md else p
-                 for i, p in enumerate(t.placements))
-
-
 def _apply_moe_sharded(p: Params, x: DTensor, cfg,
                        capacity_factor: Optional[float], cd, aux_loss: bool
                        ) -> Tuple[DTensor, Any]:
@@ -556,8 +541,8 @@ def _apply_moe_sharded(p: Params, x: DTensor, cfg,
     split = sh.on_model(w_r) == Shard(0)
     logits = sh.run_local(
         lambda xl, wl: torch.einsum("gsd,de->gse", xl.float(), wl.float()),
-        _on_model(x, Partial() if split else Replicate()), x, w_r,
-        in_grad_placements=(x.placements, _batch_grad(x, w_r)))
+        sh.on_model_as(x, Partial() if split else Replicate()), x, w_r,
+        in_grad_placements=(x.placements, sh.batch_grad(x, w_r)))
     logits = sh.with_placement(logits, "model", Replicate())
     probs = torch.softmax(logits, dim=-1)                          # (G,S,E)
 
@@ -578,9 +563,9 @@ def _apply_moe_sharded(p: Params, x: DTensor, cfg,
                            ).reshape(xl.shape)
 
     share = Partial() if experts_sharded else Replicate()
-    rows = _on_model(x, share)
-    grads = (rows, _on_model(probs, share)) + tuple(
-        _batch_grad(x, w) for w in (w_up, w_gate, w_down))
+    rows = sh.on_model_as(x, share)
+    grads = (rows, sh.on_model_as(probs, share)) + tuple(
+        sh.batch_grad(x, w) for w in (w_up, w_gate, w_down))
     y = sh.run_local(experts, rows, x, probs, w_up, w_gate, w_down,
                      in_grad_placements=grads)
     y = sh.with_placement(y, "model", Replicate())

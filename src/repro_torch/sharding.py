@@ -255,18 +255,40 @@ def model_rank(mesh) -> int:
     return 0 if md is None else mesh.get_coordinate()[md]
 
 
+def on_model_as(t: DTensor, place) -> Tuple:
+    """``t``'s placements with ``place`` on the "model" axis."""
+    md = mesh_dim(t.device_mesh, "model")
+    return tuple(place if i == md else p for i, p in enumerate(t.placements))
+
+
+def batch_grad(data: DTensor, w: DTensor, model: bool = False) -> Tuple:
+    """Where the gradient of ``w`` is left, a rank having read it against
+    its own batch rows (dim 0) of ``data`` (and, with ``model``, read only
+    its own slice of ``w``): partial over the axes that shard the batch
+    (and over "model"), laid out as ``w`` elsewhere."""
+    md = mesh_dim(w.device_mesh, "model")
+    return tuple(Partial() if d == Shard(0) or (model and i == md) else p
+                 for i, (d, p) in enumerate(zip(data.placements,
+                                                w.placements)))
+
+
 def run_local(fn, out_placements: Sequence, *args, in_grad_placements=None):
     """``fn`` on each rank's shards of ``args`` (DTensors as they are laid
-    out, anything else as it is), its one tensor result a DTensor of
+    out, anything else as it is), its tensor result a DTensor of
     ``out_placements`` (``local_map``; shards even, as ``local_map``
-    infers the global shape from the local one).  ``in_grad_placements``
-    names where an input's gradient is left partial (a rank reads part of
-    a replicated input)."""
+    infers the global shape from the local one); a tuple of results takes
+    a sequence of placements, one a result.  ``in_grad_placements`` names
+    where an input's gradient is left partial (a rank reads part of a
+    replicated input)."""
     from torch.distributed.tensor.experimental import local_map
     mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
     in_pl = tuple(a.placements if isinstance(a, DTensor) else None
                   for a in args)
-    return local_map(fn, out_placements=list(out_placements),
+    if isinstance(out_placements[0], (tuple, list)):   # one a result
+        out_placements = tuple(list(p) for p in out_placements)
+    else:
+        out_placements = list(out_placements)
+    return local_map(fn, out_placements=out_placements,
                      in_placements=in_pl,
                      in_grad_placements=in_grad_placements,
                      device_mesh=mesh)(*args)

@@ -6,6 +6,7 @@ reads bf16 payloads on the CPU as f32) at the parity harness's sizes.
     python tests/_torch_mesh_walker.py qwen1.5-0.5b:train:2x2 ...
 
 prints one JSON object, {"arch:mode:mesh": {"flops", "collective_breakdown"}}.
+A hybrid arch's selective scan is stood in for by an elementwise function.
 """
 import json
 import os
@@ -38,6 +39,13 @@ def walker_count(arch: str, mode: str, dims) -> dict:
 
     cfg = dataclasses.replace(get_arch(arch).smoke, param_dtype="float32",
                               compute_dtype="float32")
+    if cfg.family == "hybrid":
+        # the selective scan, whose chunked dots the port's K3 counts by
+        # its own formula, stood in for by an elementwise function of the
+        # same inputs (as tests/_torch_dryrun_parity.py does on one chip)
+        from _torch_dryrun_parity import _jax_selective
+        from repro.models import ssm
+        ssm.selective_scan_chunked = _jax_selective
     shape = ShapeConfig("parity", SEQ[mode], B, mode)
     mesh = Mesh(np.asarray(jax.devices()[:dims[0] * dims[1]]).reshape(dims),
                 ("data", "model"))

@@ -4,7 +4,8 @@
     python tests/_torch_mesh_worker.py DIR RANK [WORLD]
 
 reads ``DIR/inputs.pt`` (for each case: an arch, its smoke's (heads, KV
-heads) and MoE config if they are changed, params and tokens), joins a
+heads) and MoE config if they are changed, params and tokens, and
+whether to check the Mamba mixer's pieces, :func:`units`), joins a
 group of WORLD ranks (2 by default) through a ``FileStore`` in DIR, and
 for each case on the ("data", "model") meshes of ``MESHES[WORLD]`` runs
 the forward, prefill, 4 decode steps with ``seq_parallel`` off and on,
@@ -91,7 +92,12 @@ def run(cfg, params, tokens, mesh, seq_parallel):
                                        seq_parallel=seq_parallel)
         state = sh.distribute_tree(dins["state"], specs["state"], mesh)
         p = sh.distribute_tree(params, specs["params"], mesh)   # untrained
-        out["state_spec"] = specs["state"]["periods"]["sub0"]["attn"]["k"]
+        # the layouts of the first attention and Mamba layers' caches
+        subs = specs["state"]["periods"].values()
+        out["state_spec"] = next(c["attn"]["k"] for c in subs if "attn" in c)
+        ssm = next((c["ssm"] for c in subs if "ssm" in c), None)
+        if ssm is not None:
+            out["ssm_spec"] = (ssm["conv"], ssm["state"])
         logits = []
         with torch.no_grad():
             for i in range(DECODE_STEPS):
@@ -100,6 +106,90 @@ def run(cfg, params, tokens, mesh, seq_parallel):
                                             torch.tensor(i, dtype=torch.int32))
                 logits.append(full(lg))
         out["decode"] = torch.stack(logits)
+    return out
+
+
+def units(cfg, mesh):
+    """The Mamba mixer's pieces on one mesh (the case's ``"units"``): the
+    u/z split against the reference's slices on each rank, K3's plain
+    version on each rank's channels against the whole scan (dB and dC the
+    sum of the ranks' shares), and a decode step's state written into the
+    cache's own local shard.  Returns every result whole, and each rank's
+    own checks reduced over the ranks."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_by_channels
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models import ssm as SSM
+
+    g = torch.Generator().manual_seed(3)
+    Bz, S, di, ds = 2, 8, SSM.d_inner_of(cfg), cfg.ssm.d_state
+    out = {}
+    with sh.activation_rules(mesh):
+        # in_proj's output, laid out as the product leaves it
+        xz = torch.randn(Bz, S, 2 * di, generator=g)
+        u, z = SSM._split_uz(sh.distribute(
+            xz, sh.spec_for(("batch", None, "mlp"), xz.shape, mesh), mesh),
+            di)
+        # this rank's batch rows and channels of u and of z
+        (nr, _, nc), (r0, _, c0) = sh.local_extent(u.shape, u.placements, mesh)
+        mine = (xz[r0:r0 + nr, :, c0:c0 + nc],
+                xz[r0:r0 + nr, :, di + c0:di + c0 + nc])
+        out["split"] = (full(u), full(z))
+        out["split_local_err"] = max(
+            float((t.to_local() - w).abs().max()) for t, w in zip((u, z), mine))
+        out["split_placements"] = (str(u.placements), str(z.placements))
+
+        # K3's plain version on each rank's channels, and its gradients
+        ins = {"u": torch.randn(Bz, S, di, generator=g),
+               "dt": torch.rand(Bz, S, di, generator=g) * 0.5,
+               "A_log": torch.randn(di, ds, generator=g) * 0.5,
+               "B": torch.randn(Bz, S, ds, generator=g),
+               "C": torch.randn(Bz, S, ds, generator=g),
+               "D": torch.randn(di, generator=g)}
+        dy = torch.randn(Bz, S, di, generator=g)
+        leaves = {k: v.clone().requires_grad_() for k, v in ins.items()}
+        y, h = ssm_scan_ref(*(leaves[k] for k in ("u", "dt", "A_log", "B",
+                                                  "C", "D")),
+                            torch.zeros(Bz, di, ds))
+        (y * dy).sum().backward()
+        out["scan_want"] = {"y": y.detach(), "h": h.detach(),
+                            **{k: v.grad for k, v in leaves.items()}}
+        chan = sh.spec_for(("batch", None, "mlp"), (Bz, S, di), mesh)
+        rep = sh.spec_for(("batch", None, None), (Bz, S, ds), mesh)
+        specs = {"u": chan, "dt": chan, "A_log": (None, None), "B": rep,
+                 "C": rep, "D": (None,)}
+        dist_in = {k: sh.distribute(v, specs[k], mesh).requires_grad_()
+                   for k, v in ins.items()}
+        y, h = ssm_scan_by_channels(*(dist_in[k] for k in (
+            "u", "dt", "A_log", "B", "C", "D")))
+        (y * sh.distribute(dy, chan, mesh)).sum().backward()
+        out["scan_got"] = {"y": full(y), "h": full(h), **{
+            k: full(v.grad.redistribute(v.device_mesh, v.placements))
+            for k, v in dist_in.items()}}
+
+        # a decode step's state written into the cache's local storage
+        state = torch.randn(Bz, di, ds, generator=g)
+        cache = sh.distribute(state, sh.spec_for(
+            ("batch", "mlp", None), state.shape, mesh), mesh)
+        step = {k: (v[:, :1] if v.dim() == 3 else v).contiguous()
+                for k, v in ins.items()}
+        with torch.no_grad():
+            want_y, want_h = ssm_scan_ref(*(step[k] for k in (
+                "u", "dt", "A_log", "B", "C", "D")), state)
+            ptr = cache.to_local().data_ptr()
+            y, h = ssm_scan_by_channels(
+                *(sh.distribute(step[k], specs[k], mesh) for k in (
+                    "u", "dt", "A_log", "B", "C", "D")), cache,
+                in_place=True)
+        same = isinstance(h, DTensor) and h.to_local().data_ptr() == ptr \
+            and cache.to_local().data_ptr() == ptr
+        out["decode_y"], out["decode_state"] = full(y), full(cache)
+        out["decode_want"] = (want_y, want_h)
+        flag = torch.tensor([float(same), out["split_local_err"]])
+        flags = [torch.zeros(2) for _ in range(dist.get_world_size())]
+        dist.all_gather(flags, flag)
+        out["in_place_all_ranks"] = all(bool(f[0]) for f in flags)
+        out["split_local_err"] = max(float(f[1]) for f in flags)
     return out
 
 
@@ -115,9 +205,12 @@ def main(path, rank, world=2):
     for case, d in data.items():
         cfg = smoke(d["arch"], d["heads"], d["moe"])
         for dims, mesh in meshes.items():
+            name = f"{case}:{dims[0]}x{dims[1]}"
             for sp in (False, True):
-                results[f"{case}:{dims[0]}x{dims[1]}:sp{int(sp)}"] = run(
+                results[f"{name}:sp{int(sp)}"] = run(
                     cfg, d["params"], d["tokens"], mesh, sp)
+            if d.get("units"):
+                results[f"{name}:units"] = units(cfg, mesh)
     if rank == 0:
         torch.save(results, f"{path}/out.pt")
     dist.barrier()

@@ -17,7 +17,7 @@ import pytest
 import torch
 from torch.distributed.device_mesh import init_device_mesh
 
-from _torch_dryrun_parity import attention_widths
+from _torch_dryrun_parity import SCAN_KERNELS, attention_widths
 from _torch_mesh_walker import B, SEQ
 from repro_torch import sharding as sh
 from repro_torch.core.config import LM_SHAPES, ShapeConfig, get_arch
@@ -30,6 +30,7 @@ HERE = Path(__file__).resolve().parent
 MESHES = [(2, 2), (1, 4)]
 MODES = ("train", "prefill", "decode")
 GRANITE = "granite-moe-1b-a400m"
+JAMBA = "jamba-1.5-large-398b"
 
 
 def smoke(arch, dtype="float32", **kw):
@@ -61,9 +62,11 @@ def bwd_extra(rep, cfg) -> int:
 
 @pytest.fixture(scope="module")
 def walker():
-    """The reference walker's counts of qwen1.5-0.5b's and granite-moe's
-    smokes on both meshes, from one subprocess with four CPU devices."""
-    cells = [f"{a}:{m}:{d[0]}x{d[1]}" for a in ("qwen1.5-0.5b", GRANITE)
+    """The reference walker's counts of qwen1.5-0.5b's, granite-moe's and
+    jamba's smokes on both meshes, from one subprocess with four CPU
+    devices (jamba's selective scan stood in for, as on one chip)."""
+    cells = [f"{a}:{m}:{d[0]}x{d[1]}" for a in ("qwen1.5-0.5b", GRANITE,
+                                                JAMBA)
              for m in MODES for d in MESHES]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(HERE.parent / "src"), os.environ.get("PYTHONPATH", "")]))
@@ -383,13 +386,178 @@ def test_perf_capacity_factor_sets_the_capacity(tmp_path):
     assert dropless["flops"] - default["flops"] == cfg.num_layers * per_layer
 
 
+# ---------------------------------------------------------------------------
+# The hybrid family: jamba, its Mamba mixers' channels on "model"
+# ---------------------------------------------------------------------------
+
+# the f32 columns a row that GSPMD moves by collective-permute a Mamba layer
+# of jamba's smoke (2 d_inner = 256, dt_rank + 2 d_state = 20): the u/z
+# split's (xz's local columns that belong to other ranks' u or z: 128 on
+# (2, 2), 160 on (1, 4)) and the dt_in/B/C split's of x_proj's output (10
+# and 12), read from its compiled program
+GSPMD_PERMUTE_COLUMNS = {(2, 2): 128 + 10, (1, 4): 160 + 12}
+
+
+def _mamba_layers(cfg) -> int:
+    return cfg.layer_kinds().count("ssm")
+
+
+def _rows(mode, d) -> int:
+    return B // d * (1 if mode == "decode" else SEQ[mode])
+
+
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("mode", MODES)
+def test_jamba_per_device_flops_are_the_chips_share_and_the_walkers(
+        walker, mode, dims):
+    """jamba's smoke with its Mamba mixers' d_inner channels on "model"
+    (in_proj column-parallel, x_proj, dt_proj and out_proj row-parallel,
+    K3 and its backward on each rank's rows and channels), its MoE's
+    experts and its attention's heads on "model": a quarter of the chip's
+    FLOPs.  Against the walker's (the selective scan stood in for in the
+    reference): less K3's (and its backward's) formula and K2 backward's
+    recomputed products, and less dt_proj's forward where GSPMD gives a
+    rank one of its dt_rank rows (dt_rank 4 on (1, 4)): XLA turns a
+    product that contracts one element into a multiply, which the walker
+    does not count (2 rows d_inner a Mamba layer, the port's product on a
+    rank's d_inner / m columns of all dt_rank rows)."""
+    cfg = smoke(JAMBA)
+    one = count(cfg, mode)["flops"]
+    rep = count(cfg, mode, dims)
+    assert rep["flops"] * 4 == one
+    d, m = dims
+    di = cfg.ssm.expand * cfg.d_model
+    scans = sum(rep["by_op"].get(k, {}).get("flops", 0)
+                for k in SCAN_KERNELS)
+    assert scans > 0
+    one_row = cfg.ssm.resolved_dt_rank(cfg.d_model) // m == 1
+    dt_fwd = _mamba_layers(cfg) * 2 * _rows(mode, d) * di if one_row else 0
+    assert rep["flops"] - scans - bwd_extra(rep, cfg) - dt_fwd == \
+        walker[f"{JAMBA}:{mode}:{dims[0]}x{dims[1]}"]["flops"]
+
+
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("mode", MODES)
+def test_jamba_collective_bytes_against_the_walkers(walker, mode, dims):
+    """jamba's collective operand bytes by kind against the walker's.  Its
+    attention and MoE layers differ as granite's do (the embedding lookup
+    and the router's top-k on a "data" axis; on (1, 4) the rope's halves
+    and decode over the keys).  Each Mamba layer (a reduce-scatter counted
+    as an all-reduce) differs as follows, rows being a rank's (batch rows
+    x positions), all f32:
+
+    * the u/z split: the port's one all-to-all of a rank's xz (rows x
+      2 d_inner / m); GSPMD's collective-permutes of the columns that
+      belong to other ranks (``GSPMD_PERMUTE_COLUMNS``);
+    * x_proj: the port lays the weight out by its d_inner rows (an
+      all-gather of its (d_inner, 20 / m) shard on a CPU mesh, an
+      all-to-all under NCCL) and all-reduces the (rows, 20) sum; GSPMD
+      all-gathers u_act (rows x d_inner / m) and permutes the dt_in/B/C
+      split of its output (in the permute columns);
+    * dt_proj: the port lays the weight out by its d_inner columns (its
+      (dt_rank / m, d_inner) shard, gathered as x_proj's) and reads the
+      whole dt_in that x_proj's sum left on every rank: no activation
+      moves; GSPMD runs it row-parallel over dt_rank and all-reduces
+      (rows x d_inner);
+    * the walker's scan stand-in sums B C over d_state, B and C lying on
+      "model" there: one all-reduce of rows f32 more; the port's B and C
+      are replicated over "model" (x_proj's all-reduce).
+
+    Training moves less of each kind in the port but all-to-all (the
+    split's, forward and backward, against the walker's permutes)."""
+    cfg = smoke(JAMBA)
+    got = count(cfg, mode, dims)["collective_breakdown"]
+    want = walker[f"{JAMBA}:{mode}:{dims[0]}x{dims[1]}"][
+        "collective_breakdown"]
+    gathers = got.get("all-gather", 0)
+    reduces = got.get("all-reduce", 0) + got.get("reduce-scatter", 0)
+    assert set(got) <= {"all-gather", "all-reduce", "reduce-scatter",
+                        "all-to-all"}
+    d, m = dims
+    a, E = cfg.attention, cfg.moe.num_experts
+    n, di = _mamba_layers(cfg), cfg.ssm.expand * cfg.d_model
+    n_out = cfg.ssm.resolved_dt_rank(cfg.d_model) + 2 * cfg.ssm.d_state
+    L_moe, L_attn = cfg.ffn_kinds().count("moe"), cfg.layer_kinds().count(
+        "attn")
+    rows = _rows(mode, d)
+    split = n * rows * 2 * di // m * 4
+    if mode == "train":
+        assert got["all-to-all"] == 2 * split
+        assert gathers < want["all-gather"]
+        assert reduces < want["all-reduce"]
+        return
+    assert got["all-to-all"] == split
+    table = tokens = block = topk = rope = keys = lse = 0
+    if d > 1:
+        table = cfg.vocab_size // m * cfg.d_model // d * 4
+        tokens = rows * 4
+        block = rows * cfg.d_model // m * 4
+        topk = L_moe * rows * E * 4
+    if a.num_kv_heads % m:
+        rope = L_attn * 2 * rows * a.head_dim // 4 * 4
+        if mode == "decode":
+            keys = L_attn * 2 * rows * a.num_heads * (1 + a.head_dim) * 4
+            lse = L_attn * rows * a.num_heads * 4
+    dtr = cfg.ssm.resolved_dt_rank(cfg.d_model)
+    weights = di * n_out // m * 4 + dtr // m * di * 4
+    u_act = rows * di // m * 4
+    x_sum, dt_sum, bc = rows * n_out * 4, rows * di * 4, rows * 4
+    assert reduces == want["all-reduce"] - keys \
+        + n * (x_sum - dt_sum - bc)
+    assert gathers == want["all-gather"] + table - tokens - topk + lse \
+        + n * (weights - u_act)
+    assert want["collective-permute"] == tokens + block + rope \
+        + n * rows * 4 * GSPMD_PERMUTE_COLUMNS[dims]
+    assert want.get("all-to-all", 0) == 2 * rope
+
+
+def test_jamba_long_500k_fits_the_card_with_the_cache_on_keys():
+    """jamba-1.5-large-398b long_500k (one row, 524,288 positions) on
+    (16, 16) at full width and depth: its params and decode state per
+    device (``shardings_for``, no trace) fit 80 GB, the 9 attention
+    layers' cache (8 KV heads, which do not divide 16) on its keys a
+    sixteenth of what it is replicated; the Mamba state lies on "mlp".
+    The traced cell runs K1 once an attention layer over a rank's 32,768
+    keys, K3 once a Mamba layer on a rank's 1,024 channels, the u/z
+    split's all-to-all once a Mamba layer, and peaks within the card."""
+    cfg, shape = get_arch(JAMBA).model, LM_SHAPES["long_500k"]
+    params, ins = api.param_shapes(cfg), api.input_specs(cfg, shape)
+    with mesh_lib.virtual_group(256):
+        mesh = mesh_lib.make_production_mesh()
+        per_device = {}
+        for sp in (True, False):
+            specs = mesh_lib.shardings_for(cfg, shape, mesh, params, None,
+                                           ins, seq_parallel=sp)
+            per_device[sp] = sh.local_bytes(params, specs["params"], mesh) \
+                + sh.local_bytes(ins["state"], specs["state"], mesh)
+        state = specs["state"]["periods"]
+    assert state["sub4"]["attn"]["k"] == (None, None, None, None, None)
+    assert state["sub0"]["ssm"]["state"] == (None, None, "model", None)
+    a, S = cfg.attention, shape.seq_len
+    n_attn, n_mamba = cfg.layer_kinds().count("attn"), \
+        cfg.layer_kinds().count("ssm")
+    cache = n_attn * 2 * a.num_kv_heads * S * a.head_dim * 2
+    assert per_device[True] < 80e9
+    assert per_device[False] - per_device[True] == cache - cache // 16
+    rep = dryrun.count_on_mesh(cfg, shape, multi_pod=False)
+    assert rep["seq_parallel"] and rep["peak_bytes"] < 80e9
+    k1, k3 = rep["by_op"]["decode_attention"], rep["by_op"]["ssm_scan"]
+    di = cfg.ssm.expand * cfg.d_model
+    assert (k1["count"], k3["count"]) == (n_attn, n_mamba)
+    assert k1["flops"] == n_attn * 4 * a.num_heads * a.head_dim * S // 16
+    assert k3["flops"] == n_mamba * 4 * di // 16 * cfg.ssm.d_state
+    assert rep["collective_breakdown"]["all-to-all"] == \
+        n_mamba * 2 * di // 16 * 2
+
+
 if __name__ == "__main__":
-    # the six smoke cells' collective bytes by kind, the port's and the
+    # the smoke cells' collective bytes by kind, the port's and the
     # walker's:  PYTHONPATH=src python tests/test_torch_mesh_dryrun.py
     ref = walker.__wrapped__()
-    for mode in MODES:
-        for dims in MESHES:
-            cell = f"qwen1.5-0.5b:{mode}:{dims[0]}x{dims[1]}"
-            got = count(smoke("qwen1.5-0.5b"), mode, dims)
-            print(cell, "port", got["collective_breakdown"], "walker",
-                  ref[cell]["collective_breakdown"])
+    for arch in ("qwen1.5-0.5b", GRANITE, JAMBA):
+        for mode in MODES:
+            for dims in MESHES:
+                cell = f"{arch}:{mode}:{dims[0]}x{dims[1]}"
+                got = count(smoke(arch), mode, dims)
+                print(cell, "port", got["collective_breakdown"], "walker",
+                      ref[cell]["collective_breakdown"])

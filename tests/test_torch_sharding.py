@@ -18,7 +18,8 @@ from repro.core.config import get_arch as jget_arch
 from repro.launch import mesh as jmesh
 from repro.models import api as japi
 from repro_torch import sharding as sh
-from repro_torch.core.config import LM_SHAPES, get_arch, list_archs
+from repro_torch.core.config import (LM_SHAPES, ShapeConfig, get_arch,
+                                     list_archs)
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import api
 
@@ -165,3 +166,53 @@ def test_virtual_group_refuses_a_second_group():
             with mesh_lib.virtual_group(4):
                 pass
 
+
+
+# the Mamba mixer's specs on a smoke mesh: (leaf, (2, 2)'s, (1, 4)'s)
+MIXER = [("in_proj/w", ("data", "model"), (None, "model")),
+         ("x_proj/w", ("data", "model"), (None, "model")),
+         ("dt_proj/w", ("model", "data"), ("model", None)),
+         ("out_proj/w", ("model", "data"), ("model", None)),
+         ("dt_proj/b", ("model",), ("model",)),
+         ("conv_w", (None, None), (None, None)),
+         ("conv_b", (None,), (None,)),
+         ("A_log", (None, None), (None, None)),
+         ("D", (None,), (None,))]
+
+
+@pytest.mark.parametrize("dims", [(2, 2), (1, 4)],
+                         ids=lambda d: f"{d[0]}x{d[1]}")
+def test_jamba_mixer_specs_equal_the_reference(dims):
+    """jamba's smoke tree on ("data", "model") meshes of 4 ranks: its
+    param and decode-state specs equal ``repro.sharding``'s of the same
+    tree, leaf for leaf, and the mixer's are the expected ones: in_proj and
+    x_proj (dt_rank 4 + 2 x d_state 8 = 20 outputs, 5 a rank on 4) column-
+    parallel, dt_proj and out_proj row-parallel, dt_proj's bias on "model",
+    the conv taps and bias, A_log and D replicated; the Mamba cache's conv
+    window on ("batch", None, "mlp") and its state on ("batch", "mlp",
+    None), as the mixer's u lies."""
+    jcfg, cfg = jget_arch("jamba-1.5-large-398b").smoke, \
+        get_arch("jamba-1.5-large-398b").smoke
+    shapes = japi.param_shapes(jcfg)
+    jm = StandIn(dims, ("data", "model"))
+    with mesh_lib.virtual_group(math.prod(dims)):
+        mesh = mesh_lib.make_elastic_mesh(4, model_parallel=dims[1])
+        assert tuple(mesh.shape) == dims
+        port = _flat(sh.param_pspecs(shapes, mesh))
+        assert port == _jflat(jsh.param_pspecs(shapes, jm))
+        col = 1 if dims == (2, 2) else 2
+        for leaf, *want in MIXER:
+            for sub in ("sub0", "sub1"):      # dense and MoE blocks
+                assert port[f"/stack/periods/{sub}/ssm/{leaf}"] == \
+                    (None,) + want[col - 1], leaf
+        shape = JShapeConfig("d", 16, 4, "decode")
+        ins = api.input_specs(cfg, ShapeConfig("d", 16, 4, "decode"))
+        for sp in (True, False):
+            state = _flat(sh.state_pspecs(ins["state"], mesh, sp))
+            assert state == _jflat(jsh.state_pspecs(
+                japi.input_specs(jcfg, shape)["state"], jm, sp))
+            data = "data" if dims[0] > 1 else None
+            assert state["/periods/sub0/ssm/conv"] == \
+                (None, data, None, "model")
+            assert state["/periods/sub0/ssm/state"] == \
+                (None, data, "model", None)
