@@ -3051,6 +3051,20 @@ MOE_B, MOE_S, MOE_NEW, MOE_TRAIN = 4, 96, 8, (2, 256)
 MESH_BF16_RMS = 5e-2
 
 
+def _moves(adamw, sh, after_mesh, after_none, before) -> tuple:
+    """Each param's move, a mesh's step against no mesh's: (max |diff|,
+    the largest move, relative RMS of the difference)."""
+    err = moved = sq_err = sq_move = 0.0
+    for a, b, c in zip(adamw.leaves(after_mesh), adamw.leaves(after_none),
+                       adamw.leaves(before)):
+        d_mesh, d_none = sh.full(a) - c, b - c
+        err = max(err, float((d_mesh - d_none).abs().max()))
+        moved = max(moved, float(d_none.abs().max()))
+        sq_err += float((d_mesh - d_none).double().square().sum())
+        sq_move += float(d_none.double().square().sum())
+    return err, moved, (sq_err / sq_move) ** 0.5
+
+
 def phase_mesh_moe(torch, np, device, mesh, kernels, steps, api, adamw,
                    get_arch, OptimizerConfig, ShapeConfig, gen) -> dict:
     """Phase 15 (a) for the MoE family: granite-moe-1b-a400m at full width
@@ -3192,15 +3206,7 @@ def phase_mesh_moe(torch, np, device, mesh, kernels, steps, api, adamw,
     err_loss = abs(float(m1["loss"].full_tensor()) - float(m0["loss"]))
     err_aux = abs(float(m1["aux"].full_tensor()) - float(m0["aux"]))
     err_norm = abs(float(m1["grad_norm"]) - float(m0["grad_norm"]))
-    err_move = moved = sq_err = sq_move = 0.0
-    for a, b, c in zip(adamw.leaves(pm), adamw.leaves(p_t),
-                       adamw.leaves(p_init)):
-        d_mesh, d_none = sh.full(a) - c, b - c
-        err_move = max(err_move, float((d_mesh - d_none).abs().max()))
-        moved = max(moved, float(d_none.abs().max()))
-        sq_err += float((d_mesh - d_none).double().square().sum())
-        sq_move += float(d_none.double().square().sum())
-    rel_move = (sq_err / sq_move) ** 0.5
+    err_move, moved, rel_move = _moves(adamw, sh, pm, p_t, p_init)
     del pm, p_init
     gc.collect()
     tol_t = dict(loss=1e-4, grad_norm=1e-3 * float(m0["grad_norm"]),
@@ -3404,15 +3410,7 @@ def phase_mesh_hybrid(torch, np, device, mesh, kernels, steps, api, adamw,
     torch.cuda.synchronize()
     launches_t0 = launches_of(kernels)
     loss0, norm0 = float(m0["loss"]), float(m0["grad_norm"])
-    err_move = moved = sq_err = sq_move = 0.0
-    for a, b, c in zip(adamw.leaves(pm), adamw.leaves(p_t),
-                       adamw.leaves(p_init)):
-        d_mesh, d_none = sh.full(a) - c, b - c
-        err_move = max(err_move, float((d_mesh - d_none).abs().max()))
-        moved = max(moved, float(d_none.abs().max()))
-        sq_err += float((d_mesh - d_none).double().square().sum())
-        sq_move += float(d_none.double().square().sum())
-    rel_move = (sq_err / sq_move) ** 0.5
+    err_move, moved, rel_move = _moves(adamw, sh, pm, p_t, p_init)
     tol_t = dict(loss=1e-4, grad_norm=1e-3 * norm0, move=lr / 100,
                  move_rms=1e-3)
     err_loss, err_norm = abs(loss1 - loss0), abs(norm1 - norm0)
@@ -3449,12 +3447,216 @@ def phase_mesh_hybrid(torch, np, device, mesh, kernels, steps, api, adamw,
                 phase_s=phase_s)
 
 
+# rwkv6-1.6b in phase 15 (a): whole, f32, prefills 4 prompts of 128 tokens
+# and decodes 8 steps; its first 4 layers take one f32 train step of 2 x 512
+RWKV_B, RWKV_S, RWKV_NEW, RWKV_TRAIN, RWKV_TRAIN_LAYERS = 4, 128, 8, \
+    (2, 512), 4
+# mesh against none, f32 (the one-rank mesh's LayerNorms take their
+# variance as a mean of squares and its lora products as 2-D products, so
+# the two paths round apart): the logits' max |diff| (read 4.3e-5), and
+# each state leaf's (the prefill cache's, the decoded state's) relative
+# RMS, which scales with the state's magnitude (read 6.1e-6 on a prefill
+# cache whose values reach 178, where its max |diff| is 6.8e-4)
+RWKV_LOGITS_TOL = 1e-4
+RWKV_STATE_RMS = 2e-5
+
+
+def phase_mesh_rwkv(torch, np, device, mesh, kernels, steps, api, adamw,
+                    OptimizerConfig, ShapeConfig, gen) -> dict:
+    """Phase 15 (a) for the RWKV-6 family: rwkv6-1.6b whole (24 layers) in
+    f32, random weights from seed 21, with no mesh and on the one-rank
+    ``mesh`` over the same storage (``_share_tree``, held by data_ptr), its
+    heads on "model": a prefill of 4 x 128 tokens through K4 and 8 decode
+    steps (the closed form: no K4) from no mesh's cache, the logits held to
+    no mesh's at ``RWKV_LOGITS_TOL`` and the state (the prefill cache, the
+    state after decoding) at ``RWKV_STATE_RMS``; then its first 4 layers in f32, one
+    train step of 2 x 512 through K4's backward, with and without the mesh,
+    the loss, gradient norm and each param's move held at qwen's f32
+    tolerances (moves within lr / 100).  K4 and K4's backward are counted
+    in each run."""
+    from repro_torch import sharding as sh
+    from repro_torch.configs.rwkv6_1_6b import FULL
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(FULL, param_dtype="float32",
+                              compute_dtype="float32")
+    B, S, new = RWKV_B, RWKV_S, RWKV_NEW
+    params = api.init_params(torch.Generator(device).manual_seed(21), cfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + new), device=device,
+                           generator=gen, dtype=torch.int32)
+    batch = {"tokens": tokens[:, :S]}
+    prefill, serve_step = steps.make_prefill_step(cfg), \
+        steps.make_serve_step(cfg)
+    want_prefill = {name: 0 for name in kernels}
+    want_prefill.update(rwkv6_scan=cfg.num_layers)
+    want_decode = {name: 0 for name in kernels}
+
+    def decode(p, state, put, on):
+        out = []
+        for i in range(new):
+            with sh.activation_rules(mesh if on else None,
+                                     seq_parallel=on):
+                lg, state = serve_step(p, state, put(tokens[:, S + i]),
+                                       torch.tensor(S + i, device=device))
+            out.append(sh.full(lg))
+        torch.cuda.synchronize()
+        return torch.stack(out)
+
+    # the prefill, with no mesh and on the mesh over the same params
+    reset_counts(kernels)
+    pre0, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    n_pre0 = launches_of(kernels)
+    pspecs = mesh_lib.shardings_for(cfg, ShapeConfig("p", S, B, "prefill"),
+                                    mesh, params, None, batch)
+    pm = _share_tree(params, pspecs["params"], mesh)
+    shared = all(a.to_local().data_ptr() == b.data_ptr()
+                 for a, b in zip(_leaves(pm), _leaves(params)))
+    check(shared, "rwkv6-1.6b's one-rank DTensors copy the params")
+    reset_counts(kernels)
+    with sh.activation_rules(mesh):
+        pre1, cache1 = prefill(pm, sh.distribute_tree(
+            batch, pspecs["batch"], mesh))
+    pre1 = sh.full(pre1)
+    torch.cuda.synchronize()
+    n_pre1 = launches_of(kernels)
+    err_cache = max(float((sh.full(a) - b).abs().max())
+                    for a, b in zip(_leaves(cache1), _leaves(cache)))
+    rms_cache = max(_rel_rms(sh.full(a), b)
+                    for a, b in zip(_leaves(cache1), _leaves(cache)))
+    mag_cache = max(float(b.abs().max()) for b in _leaves(cache))
+    # no mesh's prefill cache seeds both decodes
+    state0 = api.grow_decode_state(cfg, cache, S + new)
+    start = _cast(state0, lambda t: t.clone())
+    reset_counts(kernels)
+    dec0 = decode(params, state0, lambda t: t, False)
+    n_dec0 = launches_of(kernels)
+    dspecs = mesh_lib.shardings_for(
+        cfg, ShapeConfig("d", S + new, B, "decode"), mesh, params, None,
+        {"tokens": tokens[:, S], "state": start}, seq_parallel=True)
+    state1 = sh.distribute_tree(start, dspecs["state"], mesh)
+    reset_counts(kernels)
+    dec1 = decode(pm, state1, lambda t: sh.distribute(t, dspecs["tokens"],
+                                                      mesh), True)
+    n_dec1 = launches_of(kernels)
+    err_state = max(float((sh.full(a) - b).abs().max())
+                    for a, b in zip(_leaves(state1), _leaves(state0)))
+    rms_state = max(_rel_rms(sh.full(a), b)
+                    for a, b in zip(_leaves(state1), _leaves(state0)))
+    check(n_pre0 == n_pre1 == want_prefill and n_dec0 == n_dec1 ==
+          want_decode, f"rwkv6-1.6b: prefill launched {n_pre0} / {n_pre1} "
+          f"(no mesh / mesh; want {want_prefill}), decode {n_dec0} / "
+          f"{n_dec1} (want {want_decode})")
+    err_p = float((pre1 - pre0).abs().max())
+    err_d = float((dec1 - dec0).abs().max())
+    rms_p, rms_d = _rel_rms(pre1, pre0), _rel_rms(dec1, dec0)
+    check(bool(torch.isfinite(pre1).all() and torch.isfinite(dec1).all()),
+          "rwkv6-1.6b on the mesh: logits not finite")
+    check(max(err_p, err_d) <= RWKV_LOGITS_TOL
+          and max(rms_cache, rms_state) <= RWKV_STATE_RMS,
+          f"rwkv6-1.6b mesh (1, 1) != no mesh: logits' max |diff| prefill "
+          f"{err_p}, decode {err_d} (tolerance {RWKV_LOGITS_TOL}); state's "
+          f"relative RMS prefill cache {rms_cache}, after decode "
+          f"{rms_state} (tolerance {RWKV_STATE_RMS})")
+    print(f"  (a) {cfg.name} f32 ({cfg.num_layers} layers, {n_params / 1e9:.2f}"
+          f" B params, the mesh's DTensors over their storage: {shared}), "
+          f"{B} x {S} prefill + {new} decode steps: mesh (1, 1) vs none: "
+          f"logits' max |diff| prefill {err_p:.3g} (relative RMS "
+          f"{rms_p:.3g}), decode {err_d:.3g} (relative RMS {rms_d:.3g}) "
+          f"(tolerance {RWKV_LOGITS_TOL}); the prefill cache's max |diff| "
+          f"{err_cache:.3g} (its max |value| {mag_cache:.3g}, relative RMS "
+          f"{rms_cache:.3g}), the decoded state's {err_state:.3g} (relative "
+          f"RMS {rms_state:.3g}) (tolerance {RWKV_STATE_RMS}); launches "
+          f"prefill {n_pre1}, decode {n_dec1}", flush=True)
+    del params, pm, state0, state1, start, cache, cache1, pre0, pre1, dec0, \
+        dec1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- its first layers: one f32 train step through K4's backward ----
+    opt_cfg = OptimizerConfig(warmup_steps=0, eps=1e-3)
+    lr = opt_cfg.lr
+    tb, ts = RWKV_TRAIN
+    cfg_t = dataclasses.replace(cfg, num_layers=RWKV_TRAIN_LAYERS)
+    tbatch = {"tokens": torch.randint(0, cfg_t.vocab_size, (tb, ts),
+                                      device=device, generator=gen,
+                                      dtype=torch.int32)}
+    p_init = api.init_params(torch.Generator(device).manual_seed(22), cfg_t)
+    step = steps.make_train_step(cfg_t, opt_cfg, remat="none")
+    want_t = {name: 0 for name in kernels}
+    want_t.update(rwkv6_scan=cfg_t.num_layers,
+                  rwkv6_scan_bwd=cfg_t.num_layers)
+    p_mesh = _cast(p_init, lambda t: t.clone())
+    opt = adamw.init_opt_state(p_mesh, opt_cfg)
+    tspecs = mesh_lib.shardings_for(cfg_t, ShapeConfig("t", ts, tb, "train"),
+                                    mesh, p_mesh, opt, tbatch)
+    with sh.activation_rules(mesh):
+        pm = _share_tree(p_mesh, tspecs["params"], mesh)
+        om = _share_tree(opt, tspecs["opt_state"], mesh)
+        reset_counts(kernels)
+        pm, om, m1 = step(pm, om, sh.distribute_tree(
+            tbatch, tspecs["batch"], mesh))
+        torch.cuda.synchronize()
+        launches_t1 = launches_of(kernels)
+    loss1, norm1 = float(m1["loss"].full_tensor()), float(m1["grad_norm"])
+    del om, opt, m1
+    p_t = _cast(p_init, lambda t: t.clone())
+    opt = adamw.init_opt_state(p_t, opt_cfg)
+    reset_counts(kernels)
+    p_t, opt, m0 = step(p_t, opt, tbatch)
+    torch.cuda.synchronize()
+    launches_t0 = launches_of(kernels)
+    loss0, norm0 = float(m0["loss"]), float(m0["grad_norm"])
+    err_move, moved, rel_move = _moves(adamw, sh, pm, p_t, p_init)
+    tol_t = dict(loss=1e-4, grad_norm=1e-3 * norm0, move=lr / 100,
+                 move_rms=1e-3)
+    err_loss, err_norm = abs(loss1 - loss0), abs(norm1 - norm0)
+    check(err_loss <= tol_t["loss"] and err_norm <= tol_t["grad_norm"]
+          and moved > lr / 2 and err_move <= tol_t["move"]
+          and rel_move <= tol_t["move_rms"],
+          f"rwkv6-1.6b mesh train step != no mesh: loss {err_loss}, grad "
+          f"norm {err_norm}, params' move max {moved} (lr {lr}), its max "
+          f"|diff| {err_move}, relative RMS {rel_move} (tolerances {tol_t})")
+    check(launches_t1 == launches_t0 == want_t,
+          f"rwkv6-1.6b train launches {launches_t1} vs {launches_t0}, want "
+          f"{want_t}")
+    n_train = sum(t.numel() for t in _leaves(p_init))
+    print(f"  (a) {cfg.name} first {cfg_t.num_layers} layers f32 "
+          f"({n_train / 1e9:.2f} B params) train step {tb} x {ts} (lr {lr}, "
+          f"no warmup, eps 1e-3): mesh vs none: |d loss| {err_loss:.3g} "
+          f"(loss {loss0:.4f}), |d grad norm| {err_norm:.3g}; params moved "
+          f"up to {moved:.3g}, the moves' max |diff| {err_move:.3g}, "
+          f"relative RMS {rel_move:.3g} (tolerances {tol_t}); launches "
+          f"{launches_t1}", flush=True)
+    del p_t, p_mesh, pm, p_init, opt, m0
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    print(f"  (a) {cfg.name}: {phase_s:.1f} s", flush=True)
+    return dict(params=n_params, shared_storage=shared, prefill_err=err_p,
+                prefill_rel_rms=rms_p, prefill_cache_err=err_cache,
+                prefill_cache_rel_rms=rms_cache, prefill_cache_max=mag_cache,
+                decode_err=err_d, decode_rel_rms=rms_d,
+                decode_state_err=err_state, decode_state_rel_rms=rms_state,
+                tol=dict(logits=RWKV_LOGITS_TOL, state_rms=RWKV_STATE_RMS),
+                launches_prefill=n_pre1, launches_decode=n_dec1,
+                train=dict(params=n_train, layers=cfg_t.num_layers,
+                           loss_err=err_loss, grad_norm_err=err_norm,
+                           max_move=moved, move_err=err_move,
+                           move_rel_rms=rel_move, tol=tol_t,
+                           launches=launches_t1),
+                phase_s=phase_s)
+
+
 def phase_mesh(torch, np, device, kernels, steps, api, adamw, get_arch,
                OptimizerConfig, ShapeConfig, dops, gen) -> dict:
     """Phase 15: (a) a one-rank NCCL mesh = no mesh, for qwen1.5-0.5b,
-    granite-moe-1b-a400m (:func:`phase_mesh_moe`) and jamba-1.5-large-398b
-    (:func:`phase_mesh_hybrid`), (b) K1's log-sum-exp and its merge over
-    key shards, (c) three sharded dry-run cells."""
+    granite-moe-1b-a400m (:func:`phase_mesh_moe`), jamba-1.5-large-398b
+    (:func:`phase_mesh_hybrid`) and rwkv6-1.6b (:func:`phase_mesh_rwkv`),
+    (b) K1's log-sum-exp and its merge over key shards, (c) four sharded
+    dry-run cells."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -3587,16 +3789,7 @@ def phase_mesh(torch, np, device, kernels, steps, api, adamw, get_arch,
         launches_t0 = launches_of(kernels)
         err_loss = abs(float(m1["loss"].full_tensor()) - float(m0["loss"]))
         err_norm = abs(float(m1["grad_norm"]) - float(m0["grad_norm"]))
-        # each param's move, mesh against none
-        err_move = moved = sq_err = sq_move = 0.0
-        for a, b, c in zip(adamw.leaves(pm), adamw.leaves(p_t),
-                           adamw.leaves(p_init)):
-            d_mesh, d_none = sh.full(a) - c, b - c
-            err_move = max(err_move, float((d_mesh - d_none).abs().max()))
-            moved = max(moved, float(d_none.abs().max()))
-            sq_err += float((d_mesh - d_none).double().square().sum())
-            sq_move += float(d_none.double().square().sum())
-        rel_move = (sq_err / sq_move) ** 0.5
+        err_move, moved, rel_move = _moves(adamw, sh, pm, p_t, p_init)
         tol_t = dict(loss=1e-4, grad_norm=1e-3 * float(m0["grad_norm"]),
                      move=tol_move, move_rms=tol_rms)
         check(err_loss <= tol_t["loss"] and err_norm <= tol_t["grad_norm"]
@@ -3628,6 +3821,9 @@ def phase_mesh(torch, np, device, kernels, steps, api, adamw, get_arch,
     out["a"]["jamba"] = phase_mesh_hybrid(
         torch, np, device, mesh, kernels, steps, api, adamw,
         OptimizerConfig, ShapeConfig, gen)
+    out["a"]["rwkv"] = phase_mesh_rwkv(
+        torch, np, device, mesh, kernels, steps, api, adamw,
+        OptimizerConfig, ShapeConfig, gen)
     dist.destroy_process_group()
     gc.collect()
     if on_card:
@@ -3643,7 +3839,8 @@ def phase_mesh(torch, np, device, kernels, steps, api, adamw, get_arch,
     out["c"] = {}
     for arch, sname in (("qwen1.5-0.5b", "decode_32k"),
                         ("granite-moe-1b-a400m", "decode_32k"),
-                        ("jamba-1.5-large-398b", "long_500k")):
+                        ("jamba-1.5-large-398b", "long_500k"),
+                        ("rwkv6-1.6b", "long_500k")):
         ccfg, dshape = get_arch(arch).model, dryrun.LM_SHAPES[sname]
         rep = dryrun.count_on_mesh(ccfg, dshape, multi_pod=False)
         terms = roofline(rep, ccfg, useful_flops(ccfg, dshape) / rep["chips"])
@@ -3950,7 +4147,18 @@ def main(argv=None) -> int:
             in_place=True),
         "k3 jamba-1.5-large-398b train": ssm_case(
             torch, sops, *HYB_TRAIN, 16384, 16, "float32", gen,
-            h0_random=False)}
+            h0_random=False),
+        # and rwkv6-1.6b's (f32, 32 heads of 64 a row): the prefill of
+        # 4 x 128 and its first layers' train step of 2 x 512, forward and
+        # backward (inputs drawn as phase 2's rows)
+        "k4 rwkv6-1.6b prefill": rwkv_case(
+            torch, kops, RWKV_B * 32, RWKV_S, 64, "float32", gen),
+        "k4 rwkv6-1.6b train": rwkv_case(
+            torch, kops, RWKV_TRAIN[0] * 32, RWKV_TRAIN[1], 64, "float32",
+            gen),
+        "bwd rwkv6-1.6b train": rwkv_bwd_case(
+            torch, kops, kbops, RWKV_TRAIN[0] * 32, RWKV_TRAIN[1], 64,
+            "float32", gen)}
     # the scans' backwards.  K4 at rwkv6-1.6b's training shape (B 4 x 32
     # heads of 64, S 512) in f32 and bf16, and at both decay extremes held
     # to the f64 recurrence; a ragged last chunk with hd 30, hd 128 and a
@@ -4496,12 +4704,14 @@ def main(argv=None) -> int:
             "qwen1.5-0.5b (prefill, decode, a train step in f32 and one "
             "with bf16 products), on granite-moe-1b-a400m in bf16, its "
             "experts on \"model\" (prefill, decode, a train step with bf16 "
-            "products), and on jamba-1.5-large-398b, its Mamba channels on "
+            "products), on jamba-1.5-large-398b, its Mamba channels on "
             "\"model\" (CARD bf16: prefill, decode; TRAIN_CARD f32: a train "
-            "step through K3's backward); (b) K1's log-sum-exp and its merge "
-            "over 2 and 16 key shards; (c) qwen1.5-0.5b and "
-            "granite-moe-1b-a400m decode_32k and jamba-1.5-large-398b "
-            "long_500k counted on (16, 16)")
+            "step through K3's backward), and on rwkv6-1.6b in f32, its "
+            "heads on \"model\" (whole: prefill, decode; its first 4 layers: "
+            "a train step through K4's backward); (b) K1's log-sum-exp and "
+            "its merge over 2 and 16 key shards; (c) qwen1.5-0.5b and "
+            "granite-moe-1b-a400m decode_32k and jamba-1.5-large-398b and "
+            "rwkv6-1.6b long_500k counted on (16, 16)")
     meshed = phase_mesh(torch, np, device, kernels, steps, api, adamw,
                         get_arch, OptimizerConfig, ShapeConfig, dops, gen)
 
@@ -4600,10 +4810,11 @@ def main(argv=None) -> int:
     # 0 times; a mesh of 2 or more "model" ranks takes it once a layer
     row_of["decode_attention"]["lse qwen2.5-14b"] = sub_row_of(
         meshed["b"][2], 0)
-    # phase 15's granite-moe-1b-a400m (bf16) and jamba-1.5-large-398b
-    # (CARD bf16, TRAIN_CARD f32), with their launches in the one-rank
-    # mesh's prefill, decode steps and train step
-    granite, jamba = meshed["a"]["granite"], meshed["a"]["jamba"]
+    # phase 15's granite-moe-1b-a400m (bf16), jamba-1.5-large-398b (CARD
+    # bf16, TRAIN_CARD f32) and rwkv6-1.6b (f32), with their launches in the
+    # one-rank mesh's prefill, decode steps and train step
+    granite, jamba, rwkv = (meshed["a"][k] for k in ("granite", "jamba",
+                                                     "rwkv"))
     slice15["bwd jamba-1.5-large-398b train"] = rows["ssm_scan_bwd"][1]
     for name, key, launches_15 in (
             ("decode_attention", "k1 granite-moe-1b-a400m decode",
@@ -4623,7 +4834,13 @@ def main(argv=None) -> int:
             ("ssm_scan", "k3 jamba-1.5-large-398b train",
              jamba["train"]["launches"]["ssm_scan"]),
             ("ssm_scan_bwd", "bwd jamba-1.5-large-398b train",
-             jamba["train"]["launches"]["ssm_scan_bwd"])):
+             jamba["train"]["launches"]["ssm_scan_bwd"]),
+            ("rwkv6_scan", "k4 rwkv6-1.6b prefill",
+             rwkv["launches_prefill"]["rwkv6_scan"]),
+            ("rwkv6_scan", "k4 rwkv6-1.6b train",
+             rwkv["train"]["launches"]["rwkv6_scan"]),
+            ("rwkv6_scan_bwd", "bwd rwkv6-1.6b train",
+             rwkv["train"]["launches"]["rwkv6_scan_bwd"])):
         row_of[name][key.split(" ", 1)[1]] = sub_row_of(slice15[key],
                                                         launches_15)
     print("phase 15 (a) jamba's launches on the one-rank mesh: K3 "
@@ -4633,6 +4850,11 @@ def main(argv=None) -> int:
           f"{jamba['train']['launches']['ssm_scan_bwd']}, K1 "
           f"{jamba['launches_decode']['decode_attention']}, K2 "
           f"{jamba['launches_prefill']['flash_attention']}", flush=True)
+    print("phase 15 (a) rwkv6-1.6b's launches on the one-rank mesh: K4 "
+          f"{rwkv['launches_prefill']['rwkv6_scan']} (prefill) + "
+          f"{rwkv['launches_decode']['rwkv6_scan']} (decode) + "
+          f"{rwkv['train']['launches']['rwkv6_scan']} (train), K4's backward "
+          f"{rwkv['train']['launches']['rwkv6_scan_bwd']}", flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(

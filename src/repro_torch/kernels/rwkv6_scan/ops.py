@@ -19,13 +19,21 @@ CPU tensors get :func:`rwkv6_scan_ref`, which autograd differentiates.  A
 ``meta`` tensor takes the CUDA route up to the launch and reports the
 kernel's :func:`cost` to ``core.cost.analysis`` instead (a dry run); a CUDA
 call reports it too.
+
+Under a mesh, :func:`rwkv6_scan_by_heads` runs the op (forward and, under
+grad, :class:`RWKV6Scan`'s backward) on each rank's batch rows and heads
+under ``local_map``, and names where each input's gradient is left: the
+rank's du is its heads' and its rows' share, summed over "model" and the
+batch's axes.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch import sharding as sh
 from repro_torch.core.cost.analysis import note, tensor_bytes
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan import ref
@@ -180,5 +188,46 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(r, k, v, logw, u, state0)[:2]
 
 
-__all__ = ["rwkv6_scan", "rwkv6_scan_fwd", "RWKV6Scan", "rwkv6_scan_ref",
-           "cost", "ref"]
+def rwkv6_scan_by_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        logw: torch.Tensor, u: torch.Tensor,
+                        state0: torch.Tensor = None):
+    """:func:`rwkv6_scan` from ``state0`` (zeros when None) over (B, H)
+    heads, under a mesh on each rank's batch rows and heads
+    (``local_map``).
+
+    r, k, v, logw (B, H, S, hd) are laid out alike, their heads on "model"
+    or replicated; state0 (B, H, hd, hd) as they are (the decode cache's
+    spec, ("batch", "heads", None, None)).  u (H, hd) is a replicated
+    param, of which each rank reads the rows of its own heads, so its du
+    is partial over "model" (its heads' share) and over the axes that shard
+    the batch (its rows' share).  Returns (out (B, H, S, hd), state
+    (B, H, hd, hd)), f32, laid out as r.  Plain tensors: the op itself."""
+    mesh = r.device_mesh if isinstance(r, DTensor) else None
+    split = mesh is not None and isinstance(sh.on_model(r), Shard)
+
+    def local(rl, kl, vl, wl, ul, sl=None):
+        B, H, S, hd = rl.shape
+        first = sh.model_rank(mesh) * H if split else 0
+
+        def rows(t):
+            return t.contiguous().reshape(B * H, S, hd)
+
+        s0 = torch.zeros((B * H, hd, hd), dtype=torch.float32,
+                         device=rl.device) if sl is None \
+            else sl.float().reshape(B * H, hd, hd).contiguous()
+        out, state = rwkv6_scan(rows(rl), rows(kl), rows(vl),
+                                rows(wl.float()),
+                                ul[first:first + H].float().repeat(B, 1), s0)
+        return out.reshape(B, H, S, hd), state.reshape(B, H, hd, hd)
+
+    ss = () if state0 is None else (state0,)
+    if mesh is None:
+        return local(r, k, v, logw, u, *ss)
+    grads = (r.placements, k.placements, v.placements, logw.placements,
+             sh.batch_grad(r, u, split)) + tuple(s.placements for s in ss)
+    return sh.run_local(local, [r.placements, r.placements], r, k, v, logw,
+                        u, *ss, in_grad_placements=grads)
+
+
+__all__ = ["rwkv6_scan", "rwkv6_scan_fwd", "rwkv6_scan_by_heads",
+           "RWKV6Scan", "rwkv6_scan_ref", "cost", "ref"]

@@ -16,8 +16,9 @@ train step (loss, ``torch.autograd.grad``, AdamW, in place) -> checkpoint
 manager (async, atomic, auto-resume) -> supervisor heartbeats.  ``--smoke``
 selects the reduced config; a caller of :func:`main` may pass a config of
 its own (a cut of a registered one, such as jamba's ``TRAIN_CARD``).  One
-device: this trainer opens no process group.  The dense and MoE (GQA)
-families' train steps run on a mesh too (``sharding.activation_rules`` with
+device: this trainer opens no process group.  The dense, MoE (GQA),
+hybrid and RWKV-6 families' train steps run on a mesh too
+(``sharding.activation_rules`` with
 params, optimizer state and batch distributed by
 ``launch.mesh.shardings_for``, as ``launch/dryrun.py`` counts them and
 ``chip_smoke.py`` phase 15 runs them on a one-rank group); the other

@@ -35,7 +35,7 @@ _ENCDEC_FAMILIES = ("encdec", "audio")
 
 
 # the families that run under a mesh (``repro_torch.sharding``)
-MESH_FAMILIES = ("dense", "moe", "hybrid")
+MESH_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def _mod(cfg: ModelConfig):

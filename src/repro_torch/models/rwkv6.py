@@ -11,6 +11,32 @@ Cache layout (decode), per layer:
   {"shift_t": (B, D) f32, "shift_c": (B, D) f32, "wkv": (B, H, dk, dv) f32}
 Decode writes the new state into the cache **in place** and returns the same
 tensors; prefill returns a new state.
+
+Under a mesh (x a DTensor, its d_model on "model" as the reference's
+("batch", "seq", "embed") lays it out) the params lie as
+``repro_torch.sharding`` gives them, the reference's specs:
+
+* time mix: ``wr``, ``wk``, ``wv``, ``wg`` ``/w`` (d, d) on ("data",
+  "model"), column-parallel; ``wo/w`` on ("model", "data"), row-parallel;
+* channel mix: ``wk/w`` (d, d_ff) and ``wr/w`` (d, d) on ("data",
+  "model"); ``w_down/w`` on ("model", "data");
+* replicated: ``mu_*``, ``lora_base_a/b``, ``w_lora_a/b``, ``w0``, ``u``
+  (H, hd), ``ln_x``;
+* state: ``wkv`` (B, H, hd, hd) on ("batch", "heads", None, None), its
+  heads on "model"; ``shift_t`` and ``shift_c`` (B, D) on ("batch",
+  "embed"), their channels on "model".
+
+A column-parallel product's d_model / m output channels on "model" are
+whole heads there when hd divides d_model / m (rwkv6-1.6b: 2 heads of 64 a
+rank on 16; the smoke's 4 heads of 16: 1 a rank on 4), so K4 runs per
+rank on its rows and heads (``rwkv6_scan_by_heads``), and so does the
+decode step's closed form, on DTensors laid out alike (the replicated u
+read in the rank's rows of it, no collective).  The lerps and the decay stay on each rank's
+d_model channels: the replicated lora weights are read in the rank's slice
+(``_lora_down``: the down products over its rows of d_model, one
+all-reduce of their (B, S, rank) sums; ``_lora_up``: the up products, the
+decay's among them, onto its columns, no collective), so that no rank
+computes all of d_model.
 """
 from __future__ import annotations
 
@@ -18,9 +44,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
+from repro_torch import sharding as sh
 from repro_torch.core.config import ModelConfig
-from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan_by_heads
 from repro_torch.models import layers as L
 from repro_torch.models.attention import TensorSpec
 from repro_torch.models.layers import Params
@@ -85,41 +113,53 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
-def _ddlerp(p: Params, x: torch.Tensor, xx: torch.Tensor, cd
-            ) -> Dict[str, torch.Tensor]:
-    """Data-dependent lerp producing the five mixed streams."""
+def _lora_down(x: torch.Tensor, w: torch.Tensor, cd, split: bool
+               ) -> torch.Tensor:
+    """``tanh(x @ w)`` for a replicated lora weight w (d_model, rank) (the
+    reference's einsum).  Under a mesh with x's d_model on "model"
+    (``split``) each rank reads its rows of w and the (B, S, rank) sums are
+    all-reduced; the up products' gradients for the result, partial over
+    "model", are summed where they enter it (left pending, DTensor
+    scatters them over the batch rows at tanh's backward and gathers them
+    again).  w's gradient is its row slices', gathered over "model"."""
+    if not split:
+        return torch.tanh(L.linear({"w": w}, x, cd))
+    y = torch.tanh(L.linear(
+        {"w": sh.with_placement(w, "model", Shard(0))}, x, cd))
+    return sh.grad_as(y, y.placements)
+
+
+def _lora_up(x: torch.Tensor, w: torch.Tensor, cd, split: bool
+             ) -> torch.Tensor:
+    """``x @ w`` for a replicated lora weight w (rank, d_model).  Under a
+    mesh with the activations' d_model on "model" (``split``) each rank
+    computes its columns, on "model" as the activations it meets, from
+    the whole x: no collective.  w's gradient is its column slices',
+    gathered over "model"."""
+    if split:
+        w = sh.with_placement(w, "model", Shard(1))
+    return L.linear({"w": w}, x, cd)
+
+
+def _ddlerp(p: Params, x: torch.Tensor, xx: torch.Tensor, cd,
+            split: bool = False) -> Dict[str, torch.Tensor]:
+    """Data-dependent lerp producing the five mixed streams (under a mesh
+    each on the rank's d_model channels, as x lies)."""
     base = x + xx * p["mu_base"].to(cd)
-    lora = torch.tanh(torch.einsum("bsd,dr->bsr", base,
-                                   p["lora_base_a"].to(cd)))
+    lora = _lora_down(base, p["lora_base_a"], cd, split)
     R = p["lora_base_b"].shape[1]
     out = {}
     for i, s in enumerate(STREAMS):
         li = lora[..., i * R:(i + 1) * R] if lora.shape[-1] == 5 * R else lora
-        delta = torch.einsum("bsr,rd->bsd", li, p["lora_base_b"][i].to(cd))
+        delta = _lora_up(li, p["lora_base_b"][i], cd, split)
         out[s] = x + xx * (p[f"mu_{s}"].to(cd) + delta)
     return out
 
 
-def _wkv_scan(r, k, v, logw, u, state0):
-    """The sequence WKV through the ``rwkv6_scan`` op.  r, k, v, logw:
-    (B, H, S, hd); u: (H, hd); state0: (B, H, hd, hd) or None.  Returns
-    (out (B, H, S, hd), state (B, H, hd, hd)), f32."""
-    B, H, S, hd = r.shape
-    N = B * H
-
-    def rows(t):
-        return t.contiguous().reshape(N, S, hd)
-
-    s0 = torch.zeros((N, hd, hd), dtype=torch.float32, device=r.device) \
-        if state0 is None else state0.float().reshape(N, hd, hd).contiguous()
-    out, state = rwkv6_scan(rows(r), rows(k), rows(v), rows(logw.float()),
-                            u.float().repeat(B, 1), s0)
-    return out.reshape(B, H, S, hd), state.reshape(B, H, hd, hd)
-
-
 def _new_state(cache: Optional[Params], mode: str, **state) -> Optional[Params]:
     """The layer's new state: prefill returns it; decode writes it into the
-    cache in place and returns the cache's tensors."""
+    cache in place (under a mesh a copy between DTensors laid out alike,
+    into the cache's own local shards) and returns the cache's tensors."""
     if mode == "decode":
         for name, t in state.items():
             cache[name].copy_(t)
@@ -127,18 +167,40 @@ def _new_state(cache: Optional[Params], mode: str, **state) -> Optional[Params]:
     return state if mode == "prefill" else None
 
 
+def _seq_parallel_refused(x: torch.Tensor, mode: str) -> None:
+    if isinstance(x, DTensor) and mode != "decode" and sh.seq_parallel():
+        raise NotImplementedError(
+            "sequence-parallel train/prefill of RWKV-6 (a WKV scan carried "
+            "over the sequence's shards) is not ported (ROADMAP.md item 14b)")
+
+
 def apply_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
                    cache: Optional[Params] = None,
                    ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """x: (B, S, D).  One body for one chip and a mesh (x a DTensor; the
+    reference's constraint site: the output on ("batch", "seq", "embed")).
+    Under a mesh the streams and the decay stay on each rank's d_model
+    channels (:func:`_lora_down`, :func:`_lora_up`), r, k, v and g come out
+    of their column-parallel products on the rank's heads, K4 runs on its
+    rows and heads (``rwkv6_scan_by_heads``; a decode step's closed form on
+    them too, its state copied into the cache's local shards), ``ln_x``
+    all-reduces its sums and ``wo`` is row-parallel, one all-reduce of
+    (B, S, D)."""
     cd = L.dtype_of(cfg.compute_dtype)
     B, S, D = x.shape
     H, hd = num_heads_of(cfg), cfg.rwkv.head_dim
     if mode == "decode" and cache is None:
         raise ValueError("decode takes a cache")
+    _seq_parallel_refused(x, mode)
+    # x's d_model channels on "model"
+    split = isinstance(x, DTensor) and isinstance(sh.on_model(x), Shard)
+    if split and (D // sh.model_size(x.device_mesh)) % hd:
+        raise ValueError(f"{cfg.name}: heads of {hd} do not split over "
+                         f"{sh.model_size(x.device_mesh)} ranks")
 
     prev = cache["shift_t"] if cache is not None else None
     xx = _token_shift(x, prev) - x
-    st = _ddlerp(p, x, xx, cd)
+    st = _ddlerp(p, x, xx, cd, split)
 
     def heads(t):
         return t.reshape(B, S, H, hd).transpose(1, 2)     # (B, H, S, hd)
@@ -150,15 +212,16 @@ def apply_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
 
     # data-dependent decay, log-space, clamped: every exponent the scan
     # takes relies on logw < 0
-    wl = torch.tanh(torch.einsum("bsd,dr->bsr", st["w"], p["w_lora_a"].to(cd)))
-    wl = torch.einsum("bsr,rd->bsd", wl, p["w_lora_b"].to(cd))
+    wl = _lora_up(_lora_down(st["w"], p["w_lora_a"], cd, split),
+                  p["w_lora_b"], cd, split)
     logw = -torch.exp(torch.clamp(p["w0"].float()[None, None, :] + wl.float(),
                                   -10.0, 1.5))
     logw = heads(torch.clamp(logw, -8.0, -1e-6))
 
     state0 = cache["wkv"] if cache is not None else None
     if mode == "decode" and S == 1:
-        # single-step closed form
+        # single-step closed form (under a mesh on each rank's rows and
+        # heads: u, replicated, meets kv's heads in its rows of them)
         s_prev = state0.float()
         r1, k1, v1 = r[:, :, 0].float(), k[:, :, 0].float(), v[:, :, 0].float()
         kv = k1[..., :, None] * v1[..., None, :]            # (B, H, dk, dv)
@@ -167,13 +230,13 @@ def apply_time_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mode: str,
         s_fin = torch.exp(logw[:, :, 0])[..., None] * s_prev + kv
         wkv_out = out[:, :, None, :]                        # (B, H, 1, dv)
     else:
-        wkv_out, s_fin = _wkv_scan(r, k, v, logw, p["u"], state0)
+        wkv_out, s_fin = rwkv6_scan_by_heads(r, k, v, logw, p["u"], state0)
 
     y = wkv_out.transpose(1, 2).reshape(B, S, D)
     # a LayerNorm over all of D with the default eps, as the reference has it
     y = L.apply_norm(p["ln_x"], y.float())
     y = (y * g).to(cd)
-    y = L.linear(p["wo"], y, cd)
+    y = sh.constrain(L.linear(p["wo"], y, cd), ("batch", "seq", "embed"))
     return y, _new_state(cache, mode, shift_t=x[:, -1].float(), wkv=s_fin)
 
 
@@ -192,16 +255,24 @@ def init_channel_mix(gen: torch.Generator, cfg: ModelConfig) -> Params:
 def apply_channel_mix(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                       mode: str, cache: Optional[Params] = None,
                       ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """x: (B, S, D).  Under a mesh (the reference's constraint sites: h on
+    ("batch", "seq", "mlp"), the output on ("batch", "seq", "embed")):
+    ``wk`` column-parallel onto d_ff on "model", ``w_down`` row-parallel
+    (one all-reduce, its sum then sliced to each rank's d_model channels),
+    ``wr`` column-parallel onto the same channels, so that r · v moves
+    nothing."""
     cd = L.dtype_of(cfg.compute_dtype)
     if mode == "decode" and cache is None:
         raise ValueError("decode takes a cache")
+    _seq_parallel_refused(x, mode)
     prev = cache["shift_c"] if cache is not None else None
     xx = _token_shift(x, prev) - x
     xk = x + xx * p["mu_k"].to(cd)
     xr = x + xx * p["mu_r"].to(cd)
     h = L.linear(p["wk"], xk, cd)
-    h = F.relu(h.float()).square().to(cd)
-    v = L.linear(p["w_down"], h, cd)
+    h = sh.constrain(F.relu(h.float()).square().to(cd),
+                     ("batch", "seq", "mlp"))
+    v = sh.constrain(L.linear(p["w_down"], h, cd), ("batch", "seq", "embed"))
     r = torch.sigmoid(L.linear(p["wr"], xr, cd).float())
-    y = (r * v.float()).to(cd)
+    y = sh.constrain((r * v.float()).to(cd), ("batch", "seq", "embed"))
     return y, _new_state(cache, mode, shift_c=x[:, -1].float())

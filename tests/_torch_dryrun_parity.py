@@ -22,8 +22,8 @@ from repro.models import ssm as jssm
 from repro.optim import adamw as jadamw
 from repro_torch.core.config import ShapeConfig
 from repro_torch.core.config import get_arch as torch_get_arch
+from repro_torch.kernels.rwkv6_scan import ops as trwkv6_ops
 from repro_torch.launch import dryrun
-from repro_torch.models import rwkv6 as trwkv6
 from repro_torch.models import ssm as tssm
 
 B = 2
@@ -156,7 +156,7 @@ def stand_in_scans(monkeypatch, family, mode) -> None:
     decode step runs none: both compute it inline)."""
     if family == "ssm" and mode != "decode":
         monkeypatch.setattr(jrwkv6, "wkv_chunked", _jax_wkv)
-        monkeypatch.setattr(trwkv6, "rwkv6_scan", _torch_wkv)
+        monkeypatch.setattr(trwkv6_ops, "rwkv6_scan", _torch_wkv)
     elif family == "hybrid":
         monkeypatch.setattr(jssm, "selective_scan_chunked", _jax_selective)
         monkeypatch.setattr(tssm, "ssm_scan", _torch_selective)

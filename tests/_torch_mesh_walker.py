@@ -6,7 +6,8 @@ reads bf16 payloads on the CPU as f32) at the parity harness's sizes.
     python tests/_torch_mesh_walker.py qwen1.5-0.5b:train:2x2 ...
 
 prints one JSON object, {"arch:mode:mesh": {"flops", "collective_breakdown"}}.
-A hybrid arch's selective scan is stood in for by an elementwise function.
+A hybrid arch's selective scan, and an RWKV arch's WKV scan, are stood in
+for by elementwise functions.
 """
 import json
 import os
@@ -46,6 +47,11 @@ def walker_count(arch: str, mode: str, dims) -> dict:
         from _torch_dryrun_parity import _jax_selective
         from repro.models import ssm
         ssm.selective_scan_chunked = _jax_selective
+    if cfg.family == "ssm":
+        # the WKV scan likewise (a decode step computes it inline)
+        from _torch_dryrun_parity import _jax_wkv
+        from repro.models import rwkv6
+        rwkv6.wkv_chunked = _jax_wkv
     shape = ShapeConfig("parity", SEQ[mode], B, mode)
     mesh = Mesh(np.asarray(jax.devices()[:dims[0] * dims[1]]).reshape(dims),
                 ("data", "model"))

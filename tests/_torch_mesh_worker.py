@@ -5,7 +5,8 @@
 
 reads ``DIR/inputs.pt`` (for each case: an arch, its smoke's (heads, KV
 heads) and MoE config if they are changed, params and tokens, and
-whether to check the Mamba mixer's pieces, :func:`units`), joins a
+whether to check the Mamba mixer's pieces, :func:`units`, or K4's per
+rank, :func:`wkv_units`), joins a
 group of WORLD ranks (2 by default) through a ``FileStore`` in DIR, and
 for each case on the ("data", "model") meshes of ``MESHES[WORLD]`` runs
 the forward, prefill, 4 decode steps with ``seq_parallel`` off and on,
@@ -92,12 +93,17 @@ def run(cfg, params, tokens, mesh, seq_parallel):
                                        seq_parallel=seq_parallel)
         state = sh.distribute_tree(dins["state"], specs["state"], mesh)
         p = sh.distribute_tree(params, specs["params"], mesh)   # untrained
-        # the layouts of the first attention and Mamba layers' caches
+        # the layouts of the first attention, Mamba and RWKV layers' caches
         subs = specs["state"]["periods"].values()
-        out["state_spec"] = next(c["attn"]["k"] for c in subs if "attn" in c)
+        attn = next((c["attn"] for c in subs if "attn" in c), None)
+        if attn is not None:
+            out["state_spec"] = attn["k"]
         ssm = next((c["ssm"] for c in subs if "ssm" in c), None)
         if ssm is not None:
             out["ssm_spec"] = (ssm["conv"], ssm["state"])
+        rwkv = next((c["rwkv_tm"] for c in subs if "rwkv_tm" in c), None)
+        if rwkv is not None:
+            out["rwkv_spec"] = (rwkv["wkv"], rwkv["shift_t"], rwkv["shift_c"])
         logits = []
         with torch.no_grad():
             for i in range(DECODE_STEPS):
@@ -193,6 +199,79 @@ def units(cfg, mesh):
     return out
 
 
+def wkv_units(cfg, mesh):
+    """K4 per rank on one mesh (the case's ``"units"`` for an RWKV arch):
+    ``rwkv6_scan_by_heads`` on each rank's rows and heads against the op on
+    the whole tensors, forward and gradients (du the sum of the ranks'
+    shares), and the time mix's decode step, its state written into the
+    cache's own local shards.  Returns every result whole, and whether
+    every rank's cache kept its storage."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan_by_heads
+    from repro_torch.models import rwkv6 as R6
+
+    g = torch.Generator().manual_seed(4)
+    Bz, S, H, hd = 2, 8, R6.num_heads_of(cfg), cfg.rwkv.head_dim
+    ins = {"r": torch.randn(Bz, H, S, hd, generator=g),
+           "k": torch.randn(Bz, H, S, hd, generator=g),
+           "v": torch.randn(Bz, H, S, hd, generator=g),
+           "logw": -torch.exp(torch.randn(Bz, H, S, hd, generator=g) * 0.5),
+           "u": torch.randn(H, hd, generator=g) * 0.1}
+    names = ("r", "k", "v", "logw", "u")
+    dy = torch.randn(Bz, H, S, hd, generator=g)
+    dstate = torch.randn(Bz, H, hd, hd, generator=g)
+    out = {}
+    leaves = {k: v.clone().requires_grad_() for k, v in ins.items()}
+    y, state = rwkv6_scan_by_heads(*(leaves[k] for k in names))
+    ((y * dy).sum() + (state * dstate).sum()).backward()
+    out["scan_want"] = {"y": y.detach(), "state": state.detach(),
+                        **{k: v.grad for k, v in leaves.items()}}
+    tm = R6.init_time_mix(torch.Generator().manual_seed(5), cfg)
+    x = torch.randn(Bz, 1, cfg.d_model, generator=g)
+    cache0 = {"shift_t": torch.randn(Bz, cfg.d_model, generator=g),
+              "wkv": torch.randn(Bz, H, hd, hd, generator=g) * 0.1}
+    with torch.no_grad():
+        want_y, want_state = R6.apply_time_mix(
+            tm, x, cfg, mode="decode",
+            cache={k: v.clone() for k, v in cache0.items()})
+    with sh.activation_rules(mesh):
+        heads = sh.spec_for(("batch", "heads", None, None), (Bz, H, S, hd),
+                            mesh)
+        specs = dict.fromkeys(names[:4], heads)
+        specs["u"] = (None, None)
+        dist_in = {k: sh.distribute(v, specs[k], mesh).requires_grad_()
+                   for k, v in ins.items()}
+        y, state = rwkv6_scan_by_heads(*(dist_in[k] for k in names))
+        ((y * sh.distribute(dy, heads, mesh)).sum()
+         + (state * sh.distribute(dstate, heads, mesh)).sum()).backward()
+        out["scan_got"] = {"y": full(y), "state": full(state), **{
+            k: full(v.grad.redistribute(v.device_mesh, v.placements))
+            for k, v in dist_in.items()}}
+        out["placements"] = str(y.placements)
+
+        # a decode step of the time mix: its closed form on each rank's
+        # heads, the new state copied into the cache's own local shards
+        with torch.no_grad():
+            cache = sh.distribute_tree(cache0, sh.state_pspecs(cache0, mesh),
+                                       mesh)
+            ptrs = {k: v.to_local().data_ptr() for k, v in cache.items()}
+            y, state = R6.apply_time_mix(
+                sh.distribute_tree(tm, sh.param_pspecs(tm, mesh), mesh),
+                sh.distribute(x, sh.spec_for(("batch", "seq", "embed"),
+                                             x.shape, mesh), mesh),
+                cfg, mode="decode", cache=cache)
+        same = all(isinstance(state[k], DTensor)
+                   and state[k].to_local().data_ptr() == ptr
+                   == cache[k].to_local().data_ptr()
+                   for k, ptr in ptrs.items())
+        out["decode_y"], out["decode_state"] = full(y), full(cache)
+        out["decode_want"] = (want_y, want_state)
+        flags = [torch.zeros(1) for _ in range(dist.get_world_size())]
+        dist.all_gather(flags, torch.tensor([float(same)]))
+        out["in_place_all_ranks"] = all(bool(f[0]) for f in flags)
+    return out
+
+
 def main(path, rank, world=2):
     dist.init_process_group("gloo", store=dist.FileStore(f"{path}/store",
                                                          world),
@@ -210,7 +289,8 @@ def main(path, rank, world=2):
                 results[f"{name}:sp{int(sp)}"] = run(
                     cfg, d["params"], d["tokens"], mesh, sp)
             if d.get("units"):
-                results[f"{name}:units"] = units(cfg, mesh)
+                results[f"{name}:units"] = (
+                    wkv_units if cfg.family == "ssm" else units)(cfg, mesh)
     if rank == 0:
         torch.save(results, f"{path}/out.pt")
     dist.barrier()

@@ -31,6 +31,7 @@ MESHES = [(2, 2), (1, 4)]
 MODES = ("train", "prefill", "decode")
 GRANITE = "granite-moe-1b-a400m"
 JAMBA = "jamba-1.5-large-398b"
+RWKV = "rwkv6-1.6b"
 
 
 def smoke(arch, dtype="float32", **kw):
@@ -62,11 +63,12 @@ def bwd_extra(rep, cfg) -> int:
 
 @pytest.fixture(scope="module")
 def walker():
-    """The reference walker's counts of qwen1.5-0.5b's, granite-moe's and
-    jamba's smokes on both meshes, from one subprocess with four CPU
-    devices (jamba's selective scan stood in for, as on one chip)."""
+    """The reference walker's counts of qwen1.5-0.5b's, granite-moe's,
+    jamba's and rwkv6's smokes on both meshes, from one subprocess with four
+    CPU devices (jamba's selective scan and rwkv6's WKV scan stood in for,
+    as on one chip)."""
     cells = [f"{a}:{m}:{d[0]}x{d[1]}" for a in ("qwen1.5-0.5b", GRANITE,
-                                                JAMBA)
+                                                JAMBA, RWKV)
              for m in MODES for d in MESHES]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(HERE.parent / "src"), os.environ.get("PYTHONPATH", "")]))
@@ -225,11 +227,12 @@ def test_mistral_decode_fits_the_card_only_with_the_cache_on_keys():
 
 def test_non_dense_families_are_not_ported_under_a_mesh():
     """The families the mesh does not run yet: deepseek-v2 (family "moe")
-    is refused by its MLA attention, RWKV-6 by its family."""
+    is refused by its MLA attention, seamless (family "audio") by its
+    family."""
     with pytest.raises(NotImplementedError, match="item 14b"):
         count(smoke("deepseek-v2-236b"), "prefill", (2, 2))
     with pytest.raises(NotImplementedError, match="item 14b"):
-        dryrun.count_on_mesh(get_arch("rwkv6-1.6b").model,
+        dryrun.count_on_mesh(get_arch("seamless-m4t-large-v2").model,
                              LM_SHAPES["decode_32k"], multi_pod=True)
 
 
@@ -550,11 +553,135 @@ def test_jamba_long_500k_fits_the_card_with_the_cache_on_keys():
         n_mamba * 2 * di // 16 * 2
 
 
+# ---------------------------------------------------------------------------
+# The RWKV-6 family: rwkv6-1.6b, its heads on "model"
+# ---------------------------------------------------------------------------
+
+
+def _norms(cfg) -> int:
+    """The LayerNorms a step runs: three a layer (the block's two and the
+    time mix's ``ln_x``) and the final one."""
+    return 3 * cfg.num_layers + 1
+
+
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("mode", MODES)
+def test_rwkv_per_device_flops_are_the_chips_share_and_the_walkers(
+        walker, mode, dims):
+    """rwkv6's smoke with its heads on "model": the four column-parallel
+    time-mix products and ``wo`` row-parallel, K4 (a decode step's closed
+    form) on each rank's rows and heads, the lora products on the rank's
+    slice of d_model (down products over its rows, up products onto its
+    columns), the channel mix as a dense FFN: a quarter of the chip's
+    FLOPs, and the walker's (the WKV scan stood in for in the reference)
+    less K4's and its backward's formulas, with no other difference."""
+    cfg = smoke(RWKV)
+    one = count(cfg, mode)["flops"]
+    rep = count(cfg, mode, dims)
+    assert rep["flops"] * 4 == one
+    scans = sum(rep["by_op"].get(k, {}).get("flops", 0)
+                for k in SCAN_KERNELS)
+    assert (scans > 0) == (mode != "decode")
+    assert rep["flops"] - scans == \
+        walker[f"{RWKV}:{mode}:{dims[0]}x{dims[1]}"]["flops"]
+
+
+@pytest.mark.parametrize("dims", MESHES, ids=lambda d: f"{d[0]}x{d[1]}")
+@pytest.mark.parametrize("mode", MODES)
+def test_rwkv_collective_bytes_against_the_walkers(walker, mode, dims):
+    """rwkv6's collective operand bytes by kind against the walker's (a
+    reduce-scatter counted as an all-reduce).  Prefill and decode move what
+    GSPMD's program moves but for two things, rows being a rank's (batch
+    rows x positions), all f32:
+
+    * each LayerNorm over a d_model on "model": the port all-reduces its
+      sum and then its sum of squares about the mean (2 x rows); GSPMD
+      all-reduces the sum, then the sum of squares and the sum again in
+      one tuple (3 x rows), ``_norms`` of them a step;
+    * on a mesh with a "data" axis the embedding lookup, as qwen's: the
+      port gathers the table's FSDP shard, GSPMD the tokens, and permutes
+      the looked-up rows back.
+
+    The time mix's products match GSPMD's collective for collective: the
+    lora down products all-reduce (rows, 40) and (rows, 8), the up products
+    move nothing, r, k, v and g each gather their stream (rows, d_model /
+    m), ``wo`` and the channel mix's ``w_down`` all-reduce (rows,
+    d_model), K4 and the decode step move nothing.  Training moves less in
+    the port in all and gathers at most 0.7 of GSPMD's bytes; its
+    reductions are 1% fewer than GSPMD's on (1, 4) and 3.8% more on (2, 2)
+    (held within 4%), where DTensor gathers each replicated param's
+    gradient slices over "model" before it all-reduces the whole over
+    "data"."""
+    cfg = smoke(RWKV)
+    got = count(cfg, mode, dims)["collective_breakdown"]
+    want = walker[f"{RWKV}:{mode}:{dims[0]}x{dims[1]}"][
+        "collective_breakdown"]
+    gathers = got.get("all-gather", 0)
+    reduces = got.get("all-reduce", 0) + got.get("reduce-scatter", 0)
+    assert set(got) <= {"all-gather", "all-reduce", "reduce-scatter"}
+    d, m = dims
+    if mode == "train":
+        # the port's gathers are 0.68 (2, 2) and 0.67 (1, 4) of GSPMD's;
+        # its reductions 1.038 and 0.990 of them
+        assert gathers <= 0.7 * want["all-gather"]
+        assert sum(got.values()) < sum(want.values())
+        ratio = reduces / want["all-reduce"]
+        assert (1 < ratio <= 1.04) if d > 1 else (0.99 <= ratio < 1)
+        return
+    rows = _rows(mode, d)
+    table = tokens = block = 0
+    if d > 1:
+        table = cfg.vocab_size // m * cfg.d_model // d * 4
+        tokens = rows * 4
+        block = rows * cfg.d_model // m * 4
+    assert reduces == want["all-reduce"] - _norms(cfg) * rows * 4
+    assert gathers == want["all-gather"] + table - tokens
+    assert want.get("collective-permute", 0) == tokens + block
+    assert "all-to-all" not in want
+
+
+def test_rwkv_sequence_parallel_train_and_prefill_are_refused():
+    for mode in ("train", "prefill"):
+        with pytest.raises(NotImplementedError, match="item 14b"):
+            count(smoke(RWKV), mode, (1, 4), seq_parallel=True)
+
+
+def test_rwkv_long_500k_fits_the_card_with_the_state_on_heads():
+    """rwkv6-1.6b long_500k (one row, 524,288 positions) on (16, 16) at
+    full width and depth: its state is O(1) in the context, each layer's
+    ``wkv`` (32 heads of 64 x 64) on its heads, 2 a rank, and ``shift_t``
+    / ``shift_c`` on d_model; the batch of one row is replicated over
+    "data".  Params and state per device (``shardings_for``, no trace) fit
+    80 GB with the state a sixteenth of its whole.  The traced decode step
+    launches no K4 (the closed form), its one product a layer on a rank's
+    heads, and peaks within the card."""
+    cfg, shape = get_arch(RWKV).model, LM_SHAPES["long_500k"]
+    params, ins = api.param_shapes(cfg), api.input_specs(cfg, shape)
+    with mesh_lib.virtual_group(256):
+        mesh = mesh_lib.make_production_mesh()
+        specs = mesh_lib.shardings_for(cfg, shape, mesh, params, None, ins,
+                                       seq_parallel=True)
+        per_param = sh.local_bytes(params, specs["params"], mesh)
+        per_state = sh.local_bytes(ins["state"], specs["state"], mesh)
+        state = specs["state"]["periods"]["sub0"]["rwkv_tm"]
+    assert state["wkv"] == (None, None, "model", None, None)
+    assert state["shift_t"] == state["shift_c"] == (None, None, "model")
+    L, D, hd = cfg.num_layers, cfg.d_model, cfg.rwkv.head_dim
+    H = D // hd
+    whole = L * (H * hd * hd + 2 * D) * 4
+    assert per_state * 16 == whole
+    assert per_param + per_state < 80e9
+    rep = dryrun.count_on_mesh(cfg, shape, multi_pod=False)
+    assert rep["seq_parallel"] and rep["peak_bytes"] < 80e9
+    assert not any(k in rep["by_op"] for k in SCAN_KERNELS)
+    assert rep["by_op"]["aten.bmm"]["flops"] == L * 2 * (H // 16) * hd * hd
+    assert rep["collective_bytes"] > 0
+
 if __name__ == "__main__":
     # the smoke cells' collective bytes by kind, the port's and the
     # walker's:  PYTHONPATH=src python tests/test_torch_mesh_dryrun.py
     ref = walker.__wrapped__()
-    for arch in ("qwen1.5-0.5b", GRANITE, JAMBA):
+    for arch in ("qwen1.5-0.5b", GRANITE, JAMBA, RWKV):
         for mode in MODES:
             for dims in MESHES:
                 cell = f"{arch}:{mode}:{dims[0]}x{dims[1]}"

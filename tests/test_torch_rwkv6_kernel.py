@@ -22,7 +22,6 @@ from repro.kernels.rwkv6_scan.kernel import rwkv6_scan as pallas_scan
 from repro.kernels.rwkv6_scan.ref import rwkv6_scan_ref as jax_ref
 from repro.models.rwkv6 import wkv_chunked
 from repro_torch.kernels.rwkv6_scan import ops
-from repro_torch.models import rwkv6 as R6
 
 SHAPES = [(4, 64, 16), (2, 100, 64), (1, 33, 32)]
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -87,8 +86,8 @@ def test_model_scan_matches_wkv_chunked(shape, dtype):
     (jr, tr), (jk, tk), (jv, tv), (jw, tw), (ju, tu), (js, ts) = pairs
     want_out, want_state = _wkv_chunked(heads(jr), heads(jk), heads(jv),
                                         heads(jw), ju[:H], heads(js))
-    out, state = R6._wkv_scan(heads(tr), heads(tk), heads(tv), heads(tw),
-                              tu[:H], heads(ts))
+    out, state = ops.rwkv6_scan_by_heads(heads(tr), heads(tk), heads(tv),
+                                         heads(tw), tu[:H], heads(ts))
     _close(want_out, out, 1e-3)
     _close(want_state, state, 1e-3)
 
